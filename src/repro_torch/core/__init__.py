@@ -1,0 +1,76 @@
+"""The paper's primary contribution on PyTorch: distributed multi-way joins.
+
+Public API of this slice, by layer:
+
+  Data model / grid
+    Relation, concat, flatten_leading   — static-capacity columnar relation
+    Grid, SimGrid                       — the simulated reducer grid
+    broadcast_along, shuffle_by_bucket  — the shuffle layer
+
+  Logical plan IR
+    JoinQuery, QueryAggregate, ChainQuery, ChainAggregate
+
+  Physical executor
+    execute_chain / execute_query, one_round_chain / one_round_query,
+    cascade_chain / cascade_query, two_way_join,
+    distributed_groupby_sum, project_product,
+    chain_edge_inputs / query_table_inputs / scatter_to_grid,
+    ChainCaps, default_chain_caps / default_query_caps /
+    default_mapside_caps
+
+  Data plane
+    sort_merge_join, fused_sort_merge_join, groupby_sum, local_join,
+    sort_rows; oracles local_join_allpairs, groupby_sum_multipass
+
+  Statistics, cost model, planner (copies of the JAX package's)
+    ChainStats, chain_stats_exact, plan_chain, plan_query, ...
+
+  Workloads
+    edge_relation, oracle_a3, oracle_triangles
+"""
+
+from .relation import Relation, concat, flatten_leading
+from .shuffle import Grid, SimGrid, broadcast_along, shuffle_by_bucket
+from .plan import ChainAggregate, ChainQuery, JoinQuery, QueryAggregate
+from .two_way import two_way_join
+from .executor import (ChainCaps, cascade_chain, cascade_query,
+                       chain_edge_inputs, default_chain_caps,
+                       default_mapside_caps, default_query_caps,
+                       execute_chain, execute_query, one_round_chain,
+                       one_round_query, query_table_inputs, scatter_to_grid)
+from .local import (fused_sort_merge_join, groupby_sum, groupby_sum_multipass,
+                    local_join, local_join_allpairs, sort_merge_join,
+                    sort_rows)
+from .aggregation import distributed_groupby_sum, project_product
+from .cost_model import (ChainStats, JoinStats, QueryStats, chain_replications,
+                         cost_chain_cascade, cost_chain_cascade_pushdown,
+                         cost_chain_one_round, cost_chain_one_round_agg,
+                         integer_shares)
+from .planner import (ChainPlan, Plan, QueryPlan, chain_stats_exact,
+                      crossover_reducers_chain, plan_chain, plan_query,
+                      plan_three_way, query_stats_exact, self_join_stats,
+                      self_join_stats_exact)
+from .skew import chain_key_sketch
+from .matmul import edge_relation, oracle_a3, oracle_triangles
+
+__all__ = [
+    "Relation", "concat", "flatten_leading",
+    "Grid", "SimGrid", "broadcast_along", "shuffle_by_bucket",
+    "JoinQuery", "QueryAggregate", "ChainQuery", "ChainAggregate",
+    "ChainCaps", "execute_chain", "execute_query", "one_round_chain",
+    "one_round_query", "cascade_chain", "cascade_query", "two_way_join",
+    "distributed_groupby_sum", "project_product",
+    "chain_edge_inputs", "query_table_inputs", "scatter_to_grid",
+    "default_chain_caps", "default_query_caps", "default_mapside_caps",
+    "sort_merge_join", "fused_sort_merge_join", "groupby_sum",
+    "groupby_sum_multipass", "local_join", "local_join_allpairs",
+    "sort_rows",
+    "ChainStats", "JoinStats", "QueryStats", "chain_replications",
+    "cost_chain_cascade", "cost_chain_cascade_pushdown",
+    "cost_chain_one_round", "cost_chain_one_round_agg", "integer_shares",
+    "ChainPlan", "Plan", "QueryPlan", "chain_stats_exact",
+    "crossover_reducers_chain", "plan_chain", "plan_query", "plan_three_way",
+    "query_stats_exact", "self_join_stats", "self_join_stats_exact",
+    "chain_key_sketch",
+    "edge_relation", "oracle_a3", "oracle_triangles",
+]

@@ -1,0 +1,569 @@
+"""Physical executor: lower a :class:`JoinQuery` onto a reducer grid.
+
+Port of ``src/repro/core/executor.py`` for this slice:
+
+* :func:`one_round_query` — the Afrati–Ullman *Shares* join on a
+  hypercube with one dimension per join attribute (1,NJ; with an
+  aggregate, 1,NJA adds a charged aggregation round);
+* :func:`cascade_query` / :func:`cascade_chain` — left-deep cascades of
+  two-way rounds, the chain form with the paper's aggregation pushdown
+  (N−1,NJ and N−1,NJA);
+* :func:`execute_chain` / :func:`execute_query` — the entry points;
+* input placement (:func:`chain_edge_inputs`, :func:`query_table_inputs`)
+  and capacity sizing (``default_*_caps``).
+
+Cost accounting is the paper's: each round charges read + shuffled
+tuples, as float32 device scalars; the final aggregator of a pushdown
+cascade is uncharged unless requested.  ``measure_skew``,
+``overlap_chunks > 1``, the map-side cascade and SharesSkew are later
+slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import config
+from . import hashing
+from .aggregation import distributed_groupby_sum, project_product
+from .cost_model import ChainStats, chain_replications
+from .local import local_join
+from .plan import ChainQuery, JoinQuery
+from .relation import Relation
+from .shuffle import Grid, broadcast_along, shuffle_by_bucket
+from .two_way import two_way_join
+
+Stats = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainCaps:
+    """Static buffer budgets for one chain-query execution.
+
+    recv:  per-(device, source) slot capacity of every shuffle hop.
+    mid:   capacity of each intermediate join result.
+    out:   capacity of the final result shard.
+    local: per-device resident-shard budget after placement.
+    agg:   capacity of each pushed-down aggregate (cascade + pushdown).
+    join:  capacity of the raw N-way join when the one-round plan must
+           materialize it before aggregating (the paper's r''' term).
+    """
+
+    recv: int
+    mid: int
+    out: int
+    local: Optional[int] = None
+    agg: Optional[int] = None
+    join: Optional[int] = None
+
+
+def merge_stats(*stats: Stats) -> Stats:
+    """Sum read/shuffled across rounds (float32, in round order)."""
+    out: Stats = {}
+    for s in stats:
+        for k, v in s.items():
+            if k != "total":
+                out[k] = out[k] + v if k in out else v
+    out["total"] = out.get("read", 0.0) + out.get("shuffled", 0.0)
+    return out
+
+
+def _count(grid: Grid, rel: Relation) -> torch.Tensor:
+    return grid.reduce_sum(rel.count())
+
+
+def _false(rel: Relation) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.bool, device=rel.device)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to PyTorch yet "
+                               f"(ROADMAP {item})")
+
+
+def _check_options(measure_skew: bool, overlap_chunks: int) -> None:
+    if measure_skew:
+        raise _not_ported("measure_skew=True (the hash_histogram kernel)",
+                          "B3")
+    if overlap_chunks > 1:
+        raise _not_ported("overlap_chunks > 1 (the overlapped shuffle)", "A9")
+
+
+# ---------------------------------------------------------------------------
+# One-round Shares join on the join-attribute hypercube
+# ---------------------------------------------------------------------------
+
+_CLOSE = "_cc_"        # rename prefix for cycle-closing duplicate attrs
+
+
+def _close_cycle(acc: Relation, extras: Sequence[str]) -> Relation:
+    """Apply the closing hop's extra equalities (`attr == _cc_attr`) and
+    drop the renamed duplicates."""
+    mask = torch.ones_like(acc.valid)
+    for a in extras:
+        mask = mask & (acc.col(a) == acc.col(_CLOSE + a))
+    cols = {n: c for n, c in acc.cols.items()
+            if n not in {_CLOSE + a for a in extras}}
+    return Relation(cols, acc.valid & mask)
+
+
+def place_relation(grid: Grid, query: JoinQuery, j: int, rel: Relation, *,
+                   caps: ChainCaps) -> Tuple[Relation, torch.Tensor]:
+    """The map/placement phase of one relation on the Shares hypercube:
+    route to the pinned dims (one shuffle hop per hashed dim), replicate
+    over the rest.  Returns (placed shard, overflow)."""
+    overflow = _false(rel)
+    cur = rel
+    hashed = query.hashed_dims(j)
+    for d in hashed:                     # route to the pinned dims
+        if grid.shape[d] == 1:
+            continue                     # clamped dim: one bucket, no hop
+        bucket = hashing.bucket_hash(cur.col(query.dim_attr(d)),
+                                     grid.shape[d], salt=d)
+        cur, ovf, _ = shuffle_by_bucket(grid, cur, bucket, d, caps.recv,
+                                        local_capacity=caps.local)
+        overflow = overflow | ovf
+    for d in range(query.n_dims):        # replicate over the rest
+        if d in hashed or grid.shape[d] == 1:
+            continue
+        cur, ovf = broadcast_along(grid, cur, d, caps.local)
+        overflow = overflow | ovf
+    return cur, overflow
+
+
+def reduce_side_fn(query: JoinQuery, order: Sequence[int], *,
+                   caps: ChainCaps, join_impl: str = "sort_merge"):
+    """The per-device reduce function of a one-round join: the left-deep
+    chain of local joins along ``order``, cycle-closing filters applied
+    at their hop.  Returns ``reduce(*shards) -> (acc, overflow)``, with
+    the overflow per device."""
+    n = query.n_relations
+    steps = query.join_steps(tuple(order))
+    out_caps = [caps.mid] * (n - 2) + [caps.join if (query.aggregate and
+                                                     caps.join) else caps.out]
+
+    def reduce_side(*shards: Relation):
+        acc = shards[order[0]]
+        ovf = torch.zeros_like(acc.valid[..., 0])
+        for i, (j, key, extras) in enumerate(steps):
+            right = shards[j]
+            if extras:
+                right = right.rename({a: _CLOSE + a for a in extras})
+            acc, o = local_join(acc, right, key, key, out_caps[i],
+                                impl=join_impl)
+            ovf = ovf | o
+            if extras:
+                acc = _close_cycle(acc, extras)
+        return acc, ovf
+
+    return reduce_side
+
+
+def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
+                    caps: ChainCaps, join_order: Optional[Sequence[int]] = None,
+                    join_impl: str = "sort_merge",
+                    ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """One MapReduce round: place every relation on the join-attribute
+    hypercube, then join locally along ``join_order`` (default: the
+    query's greedy connected order).  Shuffled cost is Σ_j r_j · K /
+    (∏ shares R_j pins), measured exactly.  An aggregated query ships
+    the raw join to the aggregators in one more, charged, round."""
+    n = query.n_relations
+    query.check_relations(rels)
+    if len(grid.shape) != query.n_dims:
+        raise ValueError(f"a {n}-relation query needs a rank-{query.n_dims} "
+                         f"grid, got shape {grid.shape}")
+
+    read = sum(_count(grid, r) for r in rels)
+    overflow = _false(rels[0])
+    order = tuple(join_order) if join_order is not None \
+        else query.default_join_order()
+
+    placed: List[Relation] = []
+    for j, rel in enumerate(rels):
+        cur, ovf = place_relation(grid, query, j, rel, caps=caps)
+        overflow = overflow | ovf
+        placed.append(cur)
+    # Measured shuffle = tuples resident at reducers after placement
+    # (each relation counted with its replication factor).
+    received = sum(_count(grid, p) for p in placed)
+
+    reduce_side = reduce_side_fn(query, order, caps=caps, join_impl=join_impl)
+    joined, ovf_j = reduce_side(*placed)
+    del placed
+    overflow = overflow | grid.reduce_any(ovf_j)
+    stats: Stats = {
+        "read": read.to(torch.float32),
+        "shuffled": received.to(torch.float32),
+    }
+    if query.aggregate is None:
+        return joined, stats, overflow
+
+    # 1,NJA: the raw join (size r''') must be shipped to the aggregator —
+    # a charged round, the cost the pushdown cascade avoids.
+    agg = query.aggregate
+    join_cap = caps.join if caps.join else caps.out
+    proj = project_product(grid, joined, keys=agg.keys,
+                           value_cols=[v for v in query.values], out_name=agg.out)
+    del joined
+    out, st_a, ovf_a = distributed_groupby_sum(
+        grid, proj, keys=agg.keys, value=agg.out,
+        recv_capacity=join_cap, out_capacity=caps.out,
+        local_capacity=join_cap)
+    return out, merge_stats(stats, st_a), overflow | ovf_a
+
+
+def one_round_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
+                    caps: ChainCaps, join_impl: str = "sort_merge",
+                    ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """The chain instance of :func:`one_round_query` (default join order
+    ``0..N−1`` on the rank-(N−1) grid)."""
+    return one_round_query(grid, query, rels, caps=caps, join_impl=join_impl)
+
+
+# ---------------------------------------------------------------------------
+# Left-deep cascade: general queries (cycle-closing filters), then chains
+# (with the paper's aggregation pushdown)
+# ---------------------------------------------------------------------------
+
+def _final_aggregate(grid: Grid, query: JoinQuery, left: Relation,
+                     value_cols: Sequence[str], caps: ChainCaps,
+                     local_combine: bool):
+    """Γ_{keys; SUM ∏ values} of the cascade's result, every buffer at
+    ``caps.out``."""
+    agg = query.aggregate
+    proj = project_product(grid, left, keys=tuple(agg.keys),
+                           value_cols=value_cols, out_name=agg.out)
+    return distributed_groupby_sum(
+        grid, proj, keys=tuple(agg.keys), value=agg.out,
+        recv_capacity=caps.out, out_capacity=caps.out,
+        local_capacity=caps.out, local_combine=local_combine)
+
+
+def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
+                  caps: ChainCaps, join_order: Optional[Sequence[int]] = None,
+                  local_combine: bool = False,
+                  join_impl: str = "sort_merge",
+                  ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """N−1 rounds of two-way joins along a connected left-deep
+    ``join_order`` (default: the query's greedy order).  Further shared
+    attributes — the cycle-closing predicates — filter per device at
+    their hop; aggregated queries run one final *charged* aggregation
+    round.  The measured total equals
+    :func:`~repro_torch.core.cost_model.cost_query_cascade` exactly."""
+    n = query.n_relations
+    query.check_relations(rels)
+    order = tuple(join_order) if join_order is not None \
+        else query.default_join_order()
+    steps = query.join_steps(order)
+
+    all_stats: List[Stats] = []
+    overflow = _false(rels[0])
+    left = rels[order[0]]
+    left_cap = None                       # None => first round uses caps.recv
+    value_cols: List[str] = \
+        [query.values[order[0]]] if query.values[order[0]] else []
+
+    for i, (j, key, extras) in enumerate(steps):
+        right = rels[j]
+        if extras:
+            right = right.rename({a: _CLOSE + a for a in extras})
+        recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
+        local = caps.local if left_cap is None else max(left_cap, caps.recv)
+        out_cap = caps.out if i == n - 2 else caps.mid
+        left, st, ovf = two_way_join(
+            grid, left, right, key, key, recv_capacity=recv,
+            out_capacity=out_cap, local_capacity=local, salt=i,
+            join_impl=join_impl)
+        if extras:
+            left = _close_cycle(left, extras)
+        all_stats.append(st)
+        overflow = overflow | ovf
+        left_cap = out_cap
+        if query.values[j]:
+            value_cols.append(query.values[j])
+
+    if query.aggregate is not None:
+        # Final Γ — a charged aggregation round (the 2·|result| term).
+        left, st_f, ovf_f = _final_aggregate(grid, query, left, value_cols,
+                                             caps, local_combine)
+        overflow = overflow | ovf_f
+        all_stats.append(st_f)
+    return left, merge_stats(*all_stats), overflow
+
+
+def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
+                  caps: ChainCaps, pushdown: bool = True,
+                  local_combine: bool = False,
+                  join_impl: str = "sort_merge",
+                  ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """N−1 rounds of two-way joins, left-deep in query order.
+
+    With an aggregation and ``pushdown=True``, every non-final round is
+    followed by Γ_{A_1, A_{j+2}; SUM} of the running value product — the
+    paper's 2,3JA generalized; the final aggregator is uncharged.
+    Without pushdown the aggregation runs once at the end and is charged.
+    """
+    n = query.n_relations
+    query.check_relations(rels)
+    agg = query.aggregate
+    if agg is None:
+        pushdown = False
+
+    all_stats: List[Stats] = []
+    overflow = _false(rels[0])
+    left = rels[0]
+    left_cap = None                       # None => first round uses caps.recv
+    value_cols: List[str] = [query.values[0]] if query.values[0] else []
+
+    for j in range(1, n):
+        key = query.attrs[j]
+        recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
+        local = caps.local if left_cap is None else max(left_cap, caps.recv)
+        out_cap = caps.out if j == n - 1 else caps.mid
+        left, st, ovf = two_way_join(
+            grid, left, rels[j], key, key, recv_capacity=recv,
+            out_capacity=out_cap, local_capacity=local, salt=j - 1,
+            join_impl=join_impl)
+        all_stats.append(st)
+        overflow = overflow | ovf
+        left_cap = out_cap
+        if query.values[j]:
+            value_cols.append(query.values[j])
+
+        if pushdown and j < n - 1:
+            # Γ_{A_1, A_{j+2}; SUM prod} — the pushdown round (charged).
+            keys = (query.attrs[0], query.attrs[j + 1])
+            proj = project_product(grid, left, keys=keys,
+                                   value_cols=value_cols, out_name=agg.out)
+            agg_cap = caps.agg if caps.agg else caps.mid
+            left, st_a, ovf_a = distributed_groupby_sum(
+                grid, proj, keys=keys, value=agg.out,
+                recv_capacity=left_cap, out_capacity=agg_cap,
+                local_capacity=left_cap, local_combine=local_combine)
+            all_stats.append(st_a)
+            overflow = overflow | ovf_a
+            left_cap = agg_cap
+            value_cols = [agg.out]
+
+    if agg is not None:
+        # Final Γ_{A_1, A_{N+1}; SUM}: the paper's uncharged final
+        # aggregator under pushdown, the charged round without it.
+        left, st_f, ovf_f = _final_aggregate(grid, query, left, value_cols,
+                                             caps, local_combine)
+        overflow = overflow | ovf_f
+        if not pushdown:
+            all_stats.append(st_f)
+    return left, merge_stats(*all_stats), overflow
+
+
+# ---------------------------------------------------------------------------
+# Entry points: run a logical plan
+# ---------------------------------------------------------------------------
+
+def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
+                  strategy: str, caps: ChainCaps,
+                  measure_skew: bool = False, local_combine: bool = False,
+                  join_impl: str = "sort_merge",
+                  overlap_chunks: int = 1,
+                  ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """Execute ``query`` with a planner-chosen strategy:
+
+    * ``"one_round"``        — Shares hypercube (1,NJ / 1,NJA)
+    * ``"cascade"``          — plain left-deep cascade (N−1,NJ)
+    * ``"cascade_pushdown"`` — cascade with aggregation pushdown (N−1,NJA)
+
+    ``join_impl`` selects the reduce-side join for every strategy:
+    ``"sort_merge"`` (default), ``"fused"`` (rank-packed sorts and the
+    ``probe_counts`` kernel) or the ``"all_pairs"`` oracle — identical
+    tuple sets, stats and overflow flags.  Returns ``(result, stats,
+    overflow)``; everything stays on the inputs' device.
+    """
+    _check_options(measure_skew, overlap_chunks)
+    if strategy == "mapside":
+        raise _not_ported("strategy 'mapside' (the partitioned store)", "A11")
+    if strategy == "shares_skew":
+        raise _not_ported("strategy 'shares_skew' (SharesSkew)", "A10")
+    if strategy == "one_round":
+        return one_round_chain(grid, query, rels, caps=caps,
+                               join_impl=join_impl)
+    if strategy == "cascade":
+        return cascade_chain(grid, query, rels, caps=caps, pushdown=False,
+                             local_combine=local_combine,
+                             join_impl=join_impl)
+    if strategy == "cascade_pushdown":
+        if query.aggregate is None:
+            raise ValueError("cascade_pushdown needs an aggregated query")
+        return cascade_chain(grid, query, rels, caps=caps, pushdown=True,
+                             local_combine=local_combine,
+                             join_impl=join_impl)
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
+                  strategy: str, caps: ChainCaps,
+                  join_order: Optional[Sequence[int]] = None,
+                  measure_skew: bool = False, local_combine: bool = False,
+                  join_impl: str = "sort_merge",
+                  overlap_chunks: int = 1,
+                  ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """Execute a general :class:`JoinQuery` — chain, cycle, star, or any
+    connected hypergraph — with ``"one_round"``, ``"cascade"`` or (chains
+    in relation order only) ``"cascade_pushdown"``."""
+    _check_options(measure_skew, overlap_chunks)
+    if strategy == "one_round":
+        return one_round_query(grid, query, rels, caps=caps,
+                               join_order=join_order, join_impl=join_impl)
+    if strategy == "cascade":
+        return cascade_query(grid, query, rels, caps=caps,
+                             join_order=join_order,
+                             local_combine=local_combine,
+                             join_impl=join_impl)
+    if strategy == "cascade_pushdown":
+        order = query.chain_attr_order()
+        if query.aggregate is None or order is None or order != query.attrs:
+            raise ValueError("cascade_pushdown needs an aggregated chain "
+                             "query (pushdown between rounds is only sound "
+                             "for endpoint aggregates on a chain)")
+        return cascade_chain(grid, query, rels, caps=caps, pushdown=True,
+                             local_combine=local_combine,
+                             join_impl=join_impl)
+    if strategy == "shares_skew":
+        raise _not_ported("strategy 'shares_skew' (SharesSkew)", "A10")
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+# ---------------------------------------------------------------------------
+# Input placement and capacity sizing
+# ---------------------------------------------------------------------------
+
+def scatter_to_grid(rel: Relation, grid_shape: Sequence[int]) -> Relation:
+    """Mapper placement of a flat relation: rows split into contiguous
+    per-device blocks, every column reshaped to (*grid_shape,
+    rows_per_device)."""
+    shape = tuple(grid_shape)
+    n_dev = int(np.prod(shape, dtype=np.int64))
+    per = -(-rel.capacity // n_dev)
+    pad = per * n_dev - rel.capacity
+    return rel.map(lambda c: torch.cat([c, c.new_zeros(pad)]).reshape(
+        *shape, per))
+
+
+def chain_edge_inputs(query: ChainQuery, edge_lists,
+                      grid_shape: Sequence[int], device=None
+                      ) -> List[Relation]:
+    """Edge lists -> scattered per-relation inputs named by the query
+    schema (requires a value column on every relation), on ``device``
+    (default: the GPU; raises when there is none)."""
+    from .matmul import edge_relation
+    device = config.resolve_device(device)
+    rels = []
+    for j, (src, dst) in enumerate(edge_lists):
+        a, b, v = query.schema(j)
+        rels.append(scatter_to_grid(
+            edge_relation(src, dst, names=(a, b, v), device=device),
+            grid_shape))
+    return rels
+
+
+def query_table_inputs(query: JoinQuery, tables, grid_shape: Sequence[int],
+                       key_dtype=None, device=None) -> List[Relation]:
+    """Column tables -> scattered per-relation inputs named by the query
+    schema.  ``tables[j]`` is a tuple of equal-length key columns
+    matching relation j's attributes, optionally followed by a value
+    column; a ones value column is synthesized when the schema asks for
+    one.  ``key_dtype`` defaults to the configured key dtype, ``device``
+    to the GPU."""
+    device = config.resolve_device(device)
+    key_dtype = config.default_key_dtype() if key_dtype is None else key_dtype
+    rels = []
+    for j, cols in enumerate(tables):
+        names = query.schema(j)
+        arity = len(query.relations[j])
+        if len(cols) not in (arity, len(names)):
+            raise ValueError(f"relation {j} needs {arity} key columns "
+                             f"(+ optional value), got {len(cols)}")
+        arrays = {names[i]: torch.as_tensor(np.asarray(c), dtype=key_dtype,
+                                            device=device)
+                  for i, c in enumerate(cols[:arity])}
+        if query.values[j] is not None:
+            val = (torch.as_tensor(np.asarray(cols[arity]),
+                                   dtype=torch.float32, device=device)
+                   if len(cols) > arity
+                   else torch.ones_like(arrays[names[0]], dtype=torch.float32))
+            arrays[query.values[j]] = val
+        rels.append(scatter_to_grid(Relation.from_arrays(**arrays),
+                                    grid_shape))
+    return rels
+
+
+def default_query_caps(query: JoinQuery, stats, grid_shape: Sequence[int],
+                       slack: int = 6) -> ChainCaps:
+    """Size ChainCaps for a general query from exact
+    :class:`~repro_torch.core.cost_model.QueryStats`: every buffer gets
+    its expected per-device share times a skew-slack factor; join
+    buffers hold the largest raw per-hop join over the candidate
+    orders."""
+    from .cost_model import query_replications
+    n_dev = 1
+    for s in grid_shape:
+        n_dev *= s
+
+    def per(total):
+        return int(total * slack / n_dev) + 256
+
+    repl = max(query_replications(query.rel_dims(), grid_shape)) \
+        if len(grid_shape) == query.n_dims else 1.0
+    biggest = max(max(stats.sizes),
+                  max((h for hops in stats.hop_joins for h in hops),
+                      default=0.0))
+    return ChainCaps(
+        recv=per(max(stats.sizes) * repl),
+        mid=per(biggest), out=per(biggest),
+        local=per(max(stats.sizes) * repl),
+        agg=per(stats.agg_groups or 256.0),
+        join=per(biggest))
+
+
+def default_chain_caps(stats: ChainStats, grid_shape: Sequence[int],
+                       slack: int = 6) -> ChainCaps:
+    """Size ChainCaps from exact statistics: each buffer gets its
+    expected per-device share times a skew-slack factor."""
+    n_dev = 1
+    for s in grid_shape:
+        n_dev *= s
+
+    def per(total):
+        return int(total * slack / n_dev) + 256
+
+    repl = max(chain_replications(stats.sizes, grid_shape)) \
+        if len(grid_shape) == len(stats.sizes) - 1 else 1.0
+    biggest = max(max(stats.sizes), max(stats.prefix_joins),
+                  max(stats.pushdown_joins or (0.0,)))
+    return ChainCaps(
+        recv=per(max(stats.sizes) * repl),
+        mid=per(biggest), out=per(biggest),
+        local=per(max(stats.sizes) * repl),
+        agg=per(max(stats.prefix_aggs or (256.0,))),
+        join=per(stats.prefix_joins[-1]))
+
+
+def default_mapside_caps(stats: ChainStats, num_partitions: int,
+                         slack: int = 6) -> ChainCaps:
+    """Size ChainCaps for the map-side cascade (a later slice): mid/out
+    hold the per-device share of the intermediates, recv/local keep
+    base-relation sizing."""
+
+    def per(total):
+        return int(total * slack / num_partitions) + 256
+
+    inter = per(max(stats.prefix_joins))
+    return ChainCaps(
+        recv=per(max(stats.sizes)), mid=inter, out=inter,
+        local=per(max(stats.sizes)),
+        agg=per(max(stats.prefix_aggs or (256.0,))),
+        join=per(stats.prefix_joins[-1]))

@@ -1,0 +1,149 @@
+"""The shuffle layer: MapReduce's sort/shuffle guarantee on a device grid.
+
+Port of ``src/repro/core/shuffle.py``, SimGrid only.  A
+:class:`SimGrid` carries the grid axes as leading tensor axes; every
+per-device operator of this package is batched over leading axes, so
+per-device work runs on the whole grid in one call (the JAX package's
+``map_devices`` vmap has no counterpart), an all-to-all is a transpose
+and an all-gather a broadcast.  The
+``torch.distributed`` grid (the JAX package's ``ShardGrid``) is a later
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from .local import partition
+from .relation import Relation, flatten_leading
+
+
+class Grid:
+    """Abstract k1×...×kn reducer grid.  Per-device work needs no grid
+    method: the operators take a relation with or without leading grid
+    axes alike."""
+
+    shape: Tuple[int, ...]
+
+    def all_to_all(self, x: Relation, grid_axis: int) -> Relation:
+        """Per-device x has leading axis of size shape[grid_axis] (bucket-
+        major send buffer); returns same shape, leading axis = source."""
+        raise NotImplementedError
+
+    def all_gather(self, x: Relation, grid_axis: int) -> Relation:
+        """Replicate per-device x along a grid axis -> leading axis=source."""
+        raise NotImplementedError
+
+    def reduce_any(self, x: torch.Tensor) -> torch.Tensor:
+        """OR-reduce a per-device bool across the whole grid."""
+        raise NotImplementedError
+
+    def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class SimGrid(Grid):
+    """Simulated grid: tensors carry the grid axes as leading dims."""
+
+    def __init__(self, shape: Sequence[int]):
+        self.shape = tuple(shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def all_to_all(self, x: Relation, grid_axis: int) -> Relation:
+        # (*grid, K_dest, ...) -> swap the grid axis with the bucket axis.
+        return x.map(lambda a: a.transpose(grid_axis, self.ndim))
+
+    def all_gather(self, x: Relation, grid_axis: int) -> Relation:
+        # (*grid, ...) -> (*grid, K_src, ...) with out[g, s, ...] =
+        # x[g with coordinate grid_axis replaced by s].
+        k = self.shape[grid_axis]
+
+        def gather(a):
+            src_last = a.movedim(grid_axis, self.ndim - 1).unsqueeze(grid_axis)
+            shape = list(src_last.shape)
+            shape[grid_axis] = k
+            return src_last.expand(shape)
+        return x.map(gather)
+
+    def reduce_any(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.any(x.flatten(0, self.ndim - 1), 0)
+
+    def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x.sum(tuple(range(self.ndim)))
+
+
+# ---------------------------------------------------------------------------
+# Fault-injection hook
+# ---------------------------------------------------------------------------
+
+#: The JAX package offers every shuffle hop's payload to an installed
+#: fault injector; the port keeps the hook's shape, and no injector
+#: exists here yet, so it stays ``None``.
+_fault_hook = None
+
+
+def set_fault_hook(hook) -> None:
+    global _fault_hook
+    _fault_hook = hook
+
+
+def _inject(site: str, payload):
+    if _fault_hook is None:
+        return payload
+    return _fault_hook(site, payload)
+
+
+# ---------------------------------------------------------------------------
+# Distributed shuffle: the MapReduce sort/shuffle guarantee
+# ---------------------------------------------------------------------------
+
+def compact_to(grid: Grid, rel: Relation, capacity: int):
+    """Per-device: move valid rows to the front and shrink the buffer to
+    ``capacity`` (the reducer's memory budget).  Returns (rel, overflow)."""
+    ovf = rel.count() > capacity
+    return rel.compact(capacity), grid.reduce_any(ovf)
+
+
+def shuffle_by_bucket(grid: Grid, rel: Relation, bucket: torch.Tensor,
+                      grid_axis: int, recv_capacity: int,
+                      local_capacity: int | None = None):
+    """Move every tuple to the device whose index along ``grid_axis``
+    equals its bucket — the same-key→same-reducer guarantee.
+
+    ``bucket`` is per-device (capacity,) int32 in [0, shape[grid_axis]).
+    ``recv_capacity`` is the per (device, source) slot capacity; the
+    received K×recv buffers are compacted to ``local_capacity`` (default
+    K·recv = lossless).  Returns (local Relation, global overflow flag,
+    tuples sent per device).
+    """
+    k = grid.shape[grid_axis]
+    buf, ovf = partition(rel, bucket, k, recv_capacity)
+    n_sent = rel.count()
+    recv = _inject("shuffle", grid.all_to_all(buf, grid_axis))
+    local = flatten_leading(recv)
+    del buf, recv
+    overflow = grid.reduce_any(ovf)
+    if local_capacity is not None and local_capacity < k * recv_capacity:
+        local, ovf_c = compact_to(grid, local, local_capacity)
+        overflow = overflow | ovf_c
+    return local, overflow, n_sent
+
+
+def broadcast_along(grid: Grid, rel: Relation, grid_axis: int,
+                    local_capacity: int | None = None):
+    """Replicate a per-device relation along a grid axis (the 1,3J
+    "row/column replication" of R and T): each device ends with the
+    concatenation of all shards along that axis, so the per-device
+    tuple count multiplies by shape[grid_axis] — the k·|rel|
+    communication the paper charges.  Optionally compacts the result to
+    ``local_capacity``."""
+    gathered = _inject("shuffle", grid.all_gather(rel, grid_axis))
+    out = flatten_leading(gathered)
+    if local_capacity is not None:
+        return compact_to(grid, out, local_capacity)
+    return out, torch.zeros((), dtype=torch.bool, device=rel.device)

@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  At first CUDA use,
+``nvcc`` compiles it for Hopper (``sm_90a``) into its own shared
+library under ``build/kernels/`` at the repository root (override with
+``REPRO_TORCH_BUILD_DIR``), named by a hash of the source and flags so
+an edited source rebuilds; the library is then loaded with ``ctypes``.
+:func:`build` starts one ``nvcc`` per source, all at once.
+
+Nothing here touches CUDA at import time, so the package imports on a
+machine with no GPU and no compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+#: One library per ``csrc/<name>.cu``, and its C entry points:
+#: (pointers..., sizes..., stream) -> ``cudaGetLastError()`` as int.
+SIGNATURES = {
+    "segment_sum": {"segment_sum_f32": (_P, _P, _P, _LL, _LL, _LL, _P)},
+    "probe_counts": {
+        "probe_counts_i32": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
+        "probe_counts_i64": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
+    },
+}
+
+SOURCES = tuple(SIGNATURES)
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Kernel launches per kernel, counted by each wrapper where it launches
+#: its kernel and nowhere else.  Callers reset the counts to 0 before
+#: the run they want to read.
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME, or put the "
+                       "CUDA toolkit's bin directory on PATH")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every library that is not built yet — one ``nvcc`` per
+    source, all started together — and return the library paths.  The
+    compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside each library as ``.log``."""
+    names = tuple(names)
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build((name,))[name]))
+        for fn, args in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = list(args)
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` returned by a launch."""
+    if code != 0:
+        msg = lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{code} ({msg})")

@@ -1,0 +1,252 @@
+"""The port's kernels: plain versions against the JAX kernels, CUDA
+kernels against the plain versions.
+
+On the CPU the plain PyTorch versions (``repro_torch.kernels.ref``) are
+held to the JAX package's Pallas kernels run as its own tests run them
+(interpret mode): ``segment_sum`` at rtol = atol = 1e-5, the tolerance
+the reference holds its kernel to (exact for integer-valued sums), and
+``probe_counts`` as integers.  The hand-written CUDA kernels run only
+on a GPU: those tests carry the ``cuda`` marker and skip without one.
+JAX is imported only by the parity tests, so the ``cuda`` tests also
+run where only the port is installed:
+
+    python -m pytest -q -m cuda tests/test_torch_kernels.py
+"""
+
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import fused_join as tfj  # noqa: E402
+from repro_torch.kernels import segment_sum as tss  # noqa: E402
+
+I32_MAX = np.iinfo(np.int32).max
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX package's kernels and ``jax.numpy``."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import fused_join, ref as jax_ref, segment_sum
+    return types.SimpleNamespace(jnp=jnp, fj=fused_join, ref=jax_ref,
+                                 segment_sum=segment_sum.segment_sum)
+
+
+def segment_case(seed, batch, n, num_segments, kind):
+    """(values, ids) of shape (batch, n): sorted, unsorted, or with ids
+    outside [0, num_segments) mixed in."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, num_segments, (batch, n))
+    if kind == "sorted":
+        ids = np.sort(ids, axis=-1)
+    elif kind == "out_of_range":
+        ids = np.where(rng.random((batch, n)) < 0.3,
+                       rng.choice([-7, -1, num_segments, num_segments + 50],
+                                  (batch, n)), ids)
+    vals = rng.normal(size=(batch, n)).astype(np.float32)
+    return vals, ids.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions against the JAX kernels (CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,num_segments", [(128, 16), (300, 700),
+                                            (1000, 64)])
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "out_of_range"])
+def test_segment_sum_plain_matches_pallas(J, n, num_segments, kind):
+    batch = 2
+    vals, ids = segment_case(n + num_segments, batch, n, num_segments, kind)
+    got = ref.segment_sum(torch.as_tensor(vals), torch.as_tensor(ids),
+                          num_segments)
+    assert got.shape == (batch, num_segments) and got.dtype == torch.float32
+    for b in range(batch):
+        want = J.segment_sum(J.jnp.asarray(vals[b]), J.jnp.asarray(ids[b]),
+                             num_segments, interpret=True, seg_tile=128,
+                             block=256)
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_segment_sum_integer_values_exact(J):
+    """Integer-valued sums (every main-path value is a product of 1.0
+    edge weights) are exact: equal to the JAX kernel bit for bit."""
+    rng = np.random.default_rng(1)
+    ids = np.sort(rng.integers(0, 40, 500)).astype(np.int32)
+    vals = rng.integers(0, 5, 500).astype(np.float32)
+    got = ops.segment_sum(torch.as_tensor(vals), torch.as_tensor(ids), 40)
+    want = J.segment_sum(J.jnp.asarray(vals), J.jnp.asarray(ids), 40,
+                         interpret=True, seg_tile=128, block=256)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_segment_sum_out_of_range_dropped(J):
+    ids = torch.tensor([-1, 0, 1, 5, 99], dtype=torch.int32)
+    got = ops.segment_sum(torch.ones(5), ids, 4)
+    np.testing.assert_array_equal(got.numpy(), [1, 1, 0, 0])
+    want = J.ref.segment_sum(J.jnp.ones(5), J.jnp.asarray(ids.numpy()), 4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def probe_case(seed, batch, nq, nr, domain, n_valid_r):
+    """Sorted keys with a sentinel-padded tail (and a valid INT32_MAX
+    key in the mix), queries drawn around them."""
+    rng = np.random.default_rng(seed)
+    keys = np.full((batch, nr), I32_MAX, np.int64)
+    for b in range(batch):
+        k = rng.integers(0, domain, n_valid_r)
+        if b % 2:
+            k[: n_valid_r // 8 + 1] = I32_MAX
+        keys[b, :n_valid_r] = np.sort(k)
+    queries = rng.integers(-1, domain + 1, (batch, nq))
+    queries[:, ::7] = I32_MAX
+    return queries.astype(np.int32), np.sort(keys, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("nq,nr,n_valid_r", [(96, 128, 128), (200, 64, 40),
+                                             (33, 300, 0)])
+def test_probe_counts_plain_matches_pallas(J, nq, nr, n_valid_r):
+    queries, keys = probe_case(nq + nr, 3, nq, nr, 40, n_valid_r)
+    lo, hi = tfj.probe_counts(torch.as_tensor(queries), torch.as_tensor(keys))
+    assert lo.dtype == hi.dtype == torch.int32 and lo.shape == (3, nq)
+    for b in range(3):
+        lo_p, hi_p = J.fj.probe_counts_pallas(
+            J.jnp.asarray(queries[b]), J.jnp.asarray(keys[b]), block_q=32,
+            block_r=32, interpret=True)
+        np.testing.assert_array_equal(lo[b].numpy(), np.asarray(lo_p))
+        np.testing.assert_array_equal(hi[b].numpy(), np.asarray(hi_p))
+        lo_r, hi_r = J.fj.probe_counts(J.jnp.asarray(queries[b]),
+                                       J.jnp.asarray(keys[b]), backend="ref")
+        np.testing.assert_array_equal(lo[b].numpy(), np.asarray(lo_r))
+        np.testing.assert_array_equal(hi[b].numpy(), np.asarray(hi_r))
+
+
+def test_stable_key_order_and_partition_order_match_jax(J):
+    import jax
+    stable_key_order = jax.jit(J.fj.stable_key_order)
+    partition_order = jax.jit(J.fj.partition_order, static_argnums=1)
+    rng = np.random.default_rng(0)
+    for n, n_keys in ((1, 1), (7, 3), (64, 5), (257, 11)):
+        key = rng.integers(0, n_keys, n).astype(np.int32)
+        key[::5] = I32_MAX
+        valid = rng.random(n) < 0.8
+        o_j, m_j = stable_key_order(J.jnp.asarray(key),
+                                    J.jnp.asarray(valid))
+        o_t, m_t = tfj.stable_key_order(torch.as_tensor(key),
+                                        torch.as_tensor(valid))
+        np.testing.assert_array_equal(o_t.numpy(), np.asarray(o_j))
+        np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+        bucket = rng.integers(0, 5, n).astype(np.int32)
+        np.testing.assert_array_equal(
+            tfj.partition_order(torch.as_tensor(bucket), 5).numpy(),
+            np.asarray(partition_order(J.jnp.asarray(bucket), 5)))
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: the plain version only for CPU tensors or backend="ref"
+# ---------------------------------------------------------------------------
+
+def test_dispatch_policy_on_cpu_tensors():
+    t = torch.zeros(4)
+    assert ops.resolve("auto", t) == "ref"
+    assert ops.resolve("ref", t) == "ref"
+    assert ops.resolve("kernel", t) == "kernel"
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.resolve("pallas", t)
+    before = dict(ops.LAUNCHES)
+    ops.segment_sum(t, torch.zeros(4, dtype=torch.int32), 2)
+    tfj.probe_counts(torch.zeros(4, dtype=torch.int32),
+                     torch.zeros(4, dtype=torch.int32))
+    assert ops.LAUNCHES == before      # plain versions launch nothing
+    # Asking for the kernel on a CPU tensor raises; it never falls back.
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.segment_sum(t, torch.zeros(4, dtype=torch.int32), 2,
+                        backend="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfj.probe_counts(torch.zeros(4, dtype=torch.int32),
+                         torch.zeros(4, dtype=torch.int32), backend="kernel")
+    assert ops.LAUNCHES == before
+
+
+def test_build_paths_and_missing_compiler(monkeypatch, tmp_path):
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    for name in _build.SOURCES:
+        path = _build.library_path(name)
+        assert path.parent == tmp_path and path.name.startswith(name + "-")
+        assert (_build.CSRC / f"{name}.cu").is_file()
+    assert set(_build.SOURCES) == set(ops.LAUNCHES)
+    monkeypatch.setenv("NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not list(tmp_path.glob("*.so"))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against the plain versions (GPU only)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "out_of_range"])
+@pytest.mark.parametrize("batch,n,num_segments", [(1, 1, 1), (3, 1000, 64),
+                                                  (16, 5000, 7000)])
+def test_segment_sum_kernel_matches_plain(cuda, kind, batch, n, num_segments):
+    vals, ids = segment_case(n, batch, n, num_segments, kind)
+    v, i = torch.as_tensor(vals, device=cuda), torch.as_tensor(ids, device=cuda)
+    before = ops.LAUNCHES["segment_sum"]
+    got = ops.segment_sum(v, i, num_segments, backend="kernel")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_sum"] == before + 1
+    want = ops.segment_sum(v, i, num_segments, backend="ref")
+    # Float atomics add in another order than the plain scatter.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    ints = torch.as_tensor(np.rint(vals * 3), device=cuda)
+    np.testing.assert_array_equal(
+        ops.segment_sum(ints, i, num_segments).cpu().numpy(),
+        ops.segment_sum(ints, i, num_segments, backend="ref").cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("nq,nr,n_valid_r", [(1, 1, 1), (96, 128, 128),
+                                             (5000, 777, 500), (33, 300, 0)])
+def test_probe_counts_kernel_matches_plain(cuda, dtype, nq, nr, n_valid_r):
+    queries, keys = probe_case(nq + nr, 4, nq, nr, 1000, n_valid_r)
+    q = torch.as_tensor(queries, device=cuda).to(dtype)
+    k = torch.as_tensor(keys, device=cuda).to(dtype)
+    before = ops.LAUNCHES["probe_counts"]
+    lo, hi = tfj.probe_counts(q, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["probe_counts"] == before + 1
+    lo_r, hi_r = tfj.probe_counts(q, k, backend="ref")
+    assert torch.equal(lo, lo_r) and torch.equal(hi, hi_r)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    v = torch.ones(2, 8, device=cuda)
+    with pytest.raises(TypeError):
+        tss.segment_sum(v.double(), torch.zeros(2, 8, dtype=torch.int32,
+                                                device=cuda), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.segment_sum(v.t(), torch.zeros(8, 2, dtype=torch.int32,
+                                           device=cuda), 4)
+    with pytest.raises(TypeError):      # int64 ids are not narrowed
+        ops.segment_sum(v, torch.zeros(2, 8, dtype=torch.int64,
+                                       device=cuda), 4)
+    with pytest.raises(TypeError):
+        tfj.probe_counts(torch.zeros(4, device=cuda),
+                         torch.zeros(4, device=cuda), backend="kernel")
