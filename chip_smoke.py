@@ -14,23 +14,39 @@ Phases, each failing the run on any error:
    every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and the build seconds.
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it: the max abs difference, the kernel's
+   shapes its path gives it: the max abs difference, the kernel's
    time, the plain version's, one PyTorch library call's for the same
    function, and the least time the card could take (bytes moved at
-   3.35 TB/s, operations at 67 TFLOP/s — the H100 SXM data sheet).
+   3.35 TB/s; operations at 67 TFLOP/s in float32 outside the tensor
+   cores, 989 TFLOP/s in bfloat16 — the H100 SXM data sheet).
+   ``flash_attention`` runs at qwen2-7b's attention widths (28 query
+   heads, 4 kv heads, head dim 128), prefill and decode over 4,096
+   positions, in bfloat16 and float32.
 3. The main path at full size: R-MAT ``amazon`` at ``--scale`` (edge
    factor 3, a = 0.50), planned with ``chain_stats_exact`` and
    ``plan_chain(k=16)``, sized by ``default_chain_caps``, and run by
    ``execute_chain`` on ``SimGrid((4, 4))`` for 1,3J, 2,3J, 2,3JA and
    1,3JA (``sort_merge``), then 1,3J and 2,3JA again with ``fused``,
-   which must be bit-identical; a warm-up of the first run goes before
-   them, its time printed apart.  Each run checks: no overflow;
-   measured read/shuffled equal to the cost model; the enumeration's
-   (a, d) path counts, and the aggregation's (a, d, p) groups, equal to
-   A³ computed on the host with ``scipy.sparse`` — a reference
-   independent of the code under test.  The kernel launch counts are
-   set to 0 just before each run and read just after.
-4. One JSON line with every kernel's numbers, the card line, and last
+   which must be bit-identical, then 1,3J and 2,3JA with
+   ``measure_skew=True``; a warm-up of the first run goes before them,
+   its time printed apart.  Each run checks: no overflow; measured
+   read/shuffled equal to the cost model; the enumeration's (a, d)
+   path counts, and the aggregation's (a, d, p) groups, equal to A³
+   computed on the host with ``scipy.sparse`` — a reference
+   independent of the code under test.  A measured run also checks its
+   ``max_bucket_load`` (1,3J: equal to a recount of the edge lists on
+   the host).  The kernel launch counts are set to 0 just before each
+   run and read just after.
+4. The skew path at full size: ``zipf_edges(131072, 8192, 1.0)`` as all
+   three relations at k = 256, ``detect_chain_skew`` then
+   ``shares_skew_chain`` (``measure_skew=True``) for enumeration
+   (1,3JS) and aggregation (1,3JSA), each combination's caps sized from
+   exact statistics of its parts.  Checks: no overflow; the four
+   combinations and their grids; the results equal to A³; the stats
+   equal to the plan's cost.
+5. The attention entry point ``flash_attention.flash_attention`` once for prefill
+   and once for decode (bfloat16), its launches counted.
+6. One JSON line with every kernel's numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,17 +70,31 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM, outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, dense
 GRID = (4, 4)
 K = 16
+# qwen2-7b's attention (src/repro/configs/qwen2_7b.py): 28 query heads,
+# 4 kv heads, head dim 128; prefill and decode over 4,096 positions.
+ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_LEN = 28, 4, 128, 4096
+# The skew workload: Zipf(1.0) endpoints, the same list for all three
+# relations, k = 256 reducers.
+SKEW_NODES, SKEW_EDGES, SKEW_ALPHA, SKEW_K = 131072, 8192, 1.0, 256
+SKEW_GRIDS = [(16, 16), (16, 1), (1, 16), (1, 1)]
+# Each combination's caps are its exact largest per-reducer load times
+# this slack, + 256.  At 1.25, 1,3JSA peaked at 70.4 GB of the H100's
+# 80 GB; the overflow check guards the smaller slack.
+SKEW_CAP_SLACK = 1.05
 
-# (paper name, aggregated query, strategy, join_impl)
+# (paper name, aggregated query, strategy, join_impl, measure_skew)
 RUNS = (
-    ("1,3J", False, "one_round", "sort_merge"),
-    ("1,3J", False, "one_round", "fused"),
-    ("2,3J", False, "cascade", "sort_merge"),
-    ("2,3JA", True, "cascade_pushdown", "sort_merge"),
-    ("2,3JA", True, "cascade_pushdown", "fused"),
-    ("1,3JA", True, "one_round", "sort_merge"),
+    ("1,3J", False, "one_round", "sort_merge", False),
+    ("1,3J", False, "one_round", "fused", False),
+    ("2,3J", False, "cascade", "sort_merge", False),
+    ("2,3JA", True, "cascade_pushdown", "sort_merge", False),
+    ("2,3JA", True, "cascade_pushdown", "fused", False),
+    ("1,3JA", True, "one_round", "sort_merge", False),
+    ("1,3J", False, "one_round", "sort_merge", True),
+    ("2,3JA", True, "cascade_pushdown", "sort_merge", True),
 )
 
 FUSED_TWINS = {r[0] for r in RUNS if r[3] == "fused"}
@@ -74,6 +104,11 @@ KERNELS = {
                         replaces="src/repro/kernels/segment_sum.py:57"),
     "probe_counts": dict(source="src/repro_torch/csrc/probe_counts.cu",
                          replaces="src/repro/kernels/fused_join.py:181"),
+    "hash_histogram": dict(source="src/repro_torch/csrc/hash_histogram.cu",
+                           replaces="src/repro/kernels/hash_partition.py:53"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:88"),
 }
 
 
@@ -87,11 +122,12 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """The least time for the work: the larger of bytes over the memory
     rate and operations over the peak rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -189,6 +225,22 @@ def check_against_a3(w: Workload, out, aggregate: bool) -> int:
     return int(keys.numel())
 
 
+def host_hop_load(w: Workload, query) -> float:
+    """``max_bucket_load`` of 1,3J recounted from the edge lists: every
+    placement hop of relation j on dim d hashes all of j's tuples (a
+    shuffle moves tuples, it does not drop or copy them), so the hop's
+    global histogram is the histogram of the whole column — the port's
+    hash on CPU tensors, counted with numpy."""
+    from repro_torch.core.hashing import bucket_hash
+    load = 0
+    for j, (src, dst) in enumerate(w.edges):
+        for d in query.hashed_dims(j):
+            col = src if d + 1 == j else dst    # attr d+1 of relation j
+            b = bucket_hash(torch.as_tensor(col), GRID[d], salt=d).numpy()
+            load = max(load, int(np.bincount(b, minlength=GRID[d]).max()))
+    return float(load)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -203,10 +255,11 @@ def run_main_path(w: Workload, device: torch.device) -> dict:
     on_gpu = device.type == "cuda"
     launches = {name: 0 for name in ops.LAUNCHES}
     staged = {}
+    unmeasured = {}
     # A warm-up of the first run, outside the table: the first
     # execute_chain of a process pays one-time CUDA library and
     # allocator set-up.  Its time is printed, not hidden in a run's.
-    name, aggregate, strategy, impl = RUNS[0]
+    name, aggregate, strategy, impl, _ = RUNS[0]
     query = ChainQuery.three_way(aggregate=aggregate)
     rels = chain_edge_inputs(query, w.edges, GRID, device=device)
     t0 = time.perf_counter()
@@ -219,7 +272,7 @@ def run_main_path(w: Workload, device: torch.device) -> dict:
     del out, rels
     if on_gpu:
         torch.cuda.empty_cache()
-    for name, aggregate, strategy, impl in RUNS:
+    for name, aggregate, strategy, impl, measure in RUNS:
         query = ChainQuery.three_way(aggregate=aggregate)
         rels = chain_edge_inputs(query, w.edges, GRID, device=device)
         if on_gpu:
@@ -229,7 +282,7 @@ def run_main_path(w: Workload, device: torch.device) -> dict:
         t0 = time.perf_counter()
         out, stats, overflow = execute_chain(
             SimGrid(GRID), query, rels, strategy=strategy, caps=w.caps,
-            join_impl=impl)
+            join_impl=impl, measure_skew=measure)
         if on_gpu:
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -251,7 +304,25 @@ def run_main_path(w: Workload, device: torch.device) -> dict:
         check(aggregate or rows == w.stats.prefix_joins[-1],
               f"{name}: {rows} rows, j3 = {w.stats.prefix_joins[-1]}")
         groups = check_against_a3(w, out, aggregate)
-        expect = {"segment_sum": aggregate, "probe_counts": impl == "fused"}
+        label = f"{impl}{' measure_skew' if measure else ''}"
+        skew = ""
+        if measure:
+            # The measurement changes no other stat.
+            check(unmeasured[(name, impl)] == (read, shuffled),
+                  f"{name} {label}: read/shuffled differ from the run "
+                  f"without measure_skew")
+            load = float(stats["max_bucket_load"])
+            check(0 < load <= read, f"{name} {label}: max_bucket_load "
+                                    f"{load} outside (0, read={read}]")
+            if strategy == "one_round":
+                want_load = host_hop_load(w, query)
+                check(load == want_load, f"{name} {label}: max_bucket_load "
+                                         f"{load} != host recount {want_load}")
+            skew = f" max_bucket_load={load:.0f}"
+        else:
+            unmeasured[(name, impl)] = (read, shuffled)
+        expect = {"segment_sum": aggregate, "probe_counts": impl == "fused",
+                  "hash_histogram": measure}
         if on_gpu:
             for kname, used in expect.items():
                 check(counts[kname] > 0 or not used,
@@ -266,15 +337,15 @@ def run_main_path(w: Workload, device: torch.device) -> dict:
             check(torch.equal(out.valid.cpu(), twin.valid), f"{name}: mask")
             for n, c in out.cols.items():
                 check(torch.equal(c.cpu(), twin.cols[n]), f"{name}: {n}")
-        elif name in FUSED_TWINS:
+        elif name in FUSED_TWINS and not measure:
             staged[name] = out.map(lambda t: t.cpu())
         del out
         if on_gpu:
             torch.cuda.empty_cache()
-        log(f"main path {name:6s} {impl:10s} ok: rows={rows} groups={groups} "
-            f"read={read:.0f} shuffled={shuffled:.0f} total={total:.0f} "
-            f"analytic={want:.0f} wall_ms={wall_ms:.1f} "
-            f"peak_bytes={peak} launches={counts}")
+        log(f"main path {name:6s} {label:10s} ok: rows={rows} "
+            f"groups={groups} read={read:.0f} shuffled={shuffled:.0f} "
+            f"total={total:.0f} analytic={want:.0f}{skew} "
+            f"wall_ms={wall_ms:.1f} peak_bytes={peak} launches={counts}")
     return launches
 
 
@@ -403,66 +474,419 @@ def probe_counts_phase(w: Workload, gen, iters: int, dev) -> dict:
     return results
 
 
+def hash_histogram_phase(w: Workload, gen, iters: int, dev) -> dict:
+    from repro_torch.core.hashing import bucket_hash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hash_partition import hash_histogram
+
+    st, caps = w.stats, w.caps
+    batch = math.prod(GRID)
+    r, a1 = st.sizes[0], st.prefix_aggs[0]
+    # (rows, keys per row, live prefix, buckets, key dtype, key range)
+    cases = {
+        # The largest hop measure_skew reads on the main path: 2,3JA's
+        # hop 2, whose left side is the pushdown Γ output (caps.agg
+        # slots, a1 live rows), hashed into k = 16 buckets.
+        "cascade_hop2": (batch, caps.agg, math.ceil(a1 / batch), K,
+                         torch.int32, w.n_nodes),
+        # 1,3J: S's second placement hop, 4 buckets.
+        "placement_1_3J": (batch, caps.local, math.ceil(r / batch), GRID[1],
+                           torch.int32, w.n_nodes),
+        # heavy_hitters pass 1: one column of the skew workload.
+        "detection": (1, SKEW_EDGES, SKEW_EDGES, 4096, torch.int32,
+                      SKEW_NODES),
+        # 64-bit keys above 2^32.
+        "int64": (batch, caps.local, math.ceil(r / batch), K, torch.int64,
+                  1 << 40),
+    }
+    results = {}
+    for case, (rows, n, live, nb, dtype, hi) in cases.items():
+        keys = torch.randint(0, hi, (rows, n), generator=gen, device=dev,
+                             dtype=torch.int64).to(dtype)
+        valid = torch.arange(n, device=dev).expand(rows, n) < live
+        got = hash_histogram(keys, valid, nb)
+        want = ref.hash_histogram(keys, valid, nb)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"hash_histogram {case}: kernel != plain")
+        err = float((got - want).abs().max())
+        ms = time_ms(lambda: hash_histogram(keys, valid, nb), iters)
+        plain_ms = time_ms(lambda: ref.hash_histogram(keys, valid, nb), iters)
+        # The library yardstick does less work: torch.bincount over
+        # (row, block, bucket) cells computed outside the timing — it
+        # does not hash.
+        n_blocks, b = got.shape[-2], ref.histogram_block(n, 1024)
+        cell = (torch.arange(rows, device=dev)[:, None] * n_blocks
+                + torch.arange(n, device=dev) // b) * nb
+        cell = torch.where(valid, cell + bucket_hash(keys, nb),
+                           rows * n_blocks * nb).reshape(-1)
+        size = rows * n_blocks * nb + 1
+        lib_ms = time_ms(lambda: torch.bincount(cell, minlength=size), iters)
+        # Every valid byte is read, a key only where it is valid (the
+        # intermediate's buffers are mostly padding), every count written.
+        n_valid = int(valid.sum())
+        b_ms, b_by = bound_ms(rows * n + n_valid * keys.element_size()
+                              + got.numel() * 4, 10 * n_valid)
+        results[case] = dict(shape=f"({rows},{n})->({rows},{n_blocks},{nb})",
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                             library="torch.bincount of precomputed cells "
+                                     "(does not hash)")
+        log(f"kernel hash_histogram {case}: {results[case]}")
+        del keys, valid, got, want, cell
+    torch.cuda.empty_cache()
+    return results
+
+
+def attention_shapes():
+    """(case, q shape, kv shape) at qwen2-7b's attention widths."""
+    q_pre = (1, ATTN_HEADS, ATTN_LEN, ATTN_DIM)
+    kv = (1, ATTN_KV_HEADS, ATTN_LEN, ATTN_DIM)
+    return [("prefill", q_pre, kv),
+            ("decode", (1, ATTN_HEADS, 1, ATTN_DIM), kv)]
+
+
+def attention_inputs(gen, dev, q_shape, kv_shape, dtype):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in (q_shape, kv_shape, kv_shape)]
+
+
+def flash_attention_phase(gen, iters: int, dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    # The plain version's float32 products run in full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for dtype, tol, rate in ((torch.bfloat16, 2e-2, BF16_OPS_PER_S),
+                             (torch.float32, 2e-5, FP32_OPS_PER_S)):
+        for case, q_shape, kv_shape in attention_shapes():
+            q, k, v = attention_inputs(gen, dev, q_shape, kv_shape, dtype)
+            got = flash_attention(q, k, v, causal=True)
+            want = ref.attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            err = float((got.float() - want.float()).abs().max())
+            ms = time_ms(lambda: flash_attention(q, k, v, causal=True),
+                         iters)
+            plain_ms = time_ms(lambda: ref.attention(q, k, v, causal=True),
+                               iters)
+            sq, skv = q_shape[2], kv_shape[2]
+            # End-aligned causal: with Sq == Skv this is SDPA's causal
+            # mask; a single decode query sees every key.
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=sq > 1, enable_gqa=True), iters)
+            pairs = sum(min(skv, i + skv - sq + 1) for i in range(sq))
+            n_ops = 4 * q_shape[0] * q_shape[1] * ATTN_DIM * pairs
+            n_bytes = q.element_size() * (2 * q.numel() + k.numel()
+                                          + v.numel())
+            b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
+            label = f"{case}_{str(dtype).split('.')[-1]}"
+            results[label] = dict(
+                shape=f"q{q_shape} kv{kv_shape} causal {dtype}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library="torch.nn.functional.scaled_dot_product_attention")
+            log(f"kernel flash_attention {label}: {results[label]}")
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+    return results
+
+
+def run_attention_entry(dev) -> dict:
+    """The attention path: the entry point ``flash_attention.flash_attention`` once
+    for prefill and once for decode (bfloat16, qwen2-7b widths), with
+    the counts set to 0 just before and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    inputs = [attention_inputs(gen, dev, q_shape, kv_shape, torch.bfloat16)
+              for _, q_shape, kv_shape in attention_shapes()]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs = [flash_attention(q, k, v, causal=True) for q, k, v in inputs]
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    for (q, _, _), o in zip(inputs, outs):
+        check(o.shape == q.shape and o.dtype == q.dtype
+              and bool(torch.isfinite(o).all()),
+              "attention entry point: output not finite or misshapen")
+    check(counts["flash_attention"] > 0,
+          "attention entry point: the flash_attention kernel was never "
+          "launched")
+    log(f"attention entry point ok: prefill + decode, launches={counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the skew path (SharesSkew) at full size
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SkewWorkload:
+    n_edges: int
+    edges: list
+    plan: object
+    caps: dict                 # combo.heavy_dims -> ChainCaps
+    j3: float
+    a3_keys: np.ndarray
+    a3_vals: np.ndarray
+
+
+def combo_edges(plan, combo, edges):
+    """The edge lists of one combination's parts: relation j keeps a
+    tuple iff each of its join attributes is heavy exactly where the
+    combination says so."""
+    out = []
+    for j, (src, dst) in enumerate(edges):
+        keep = np.ones(len(src), bool)
+        for d, col in ((j - 1, src), (j, dst)):
+            if 0 <= d < len(combo.heavy_dims):
+                m = np.isin(col, plan.heavy[d])
+                keep &= m if combo.heavy_dims[d] else ~m
+        out.append((src[keep], dst[keep]))
+    return out
+
+
+def combo_caps(plan, combo, edges):
+    """Caps of one combination from the exact per-reducer loads of its
+    parts.  ``default_chain_caps`` (6 × the mean load) does not hold
+    them: Zipf keys below the heavy threshold still meet on one reducer
+    of the residual grid, whose join is 55 × the mean at 8,192 edges.
+    So, on the combination's grid (S on (h(b), g(c)), R1 on h(b), T on
+    g(c), as ``place_relation`` routes them), the first local join of
+    reducer (i, j) is Σ over its S tuples of indeg_R1(b), the second
+    Σ indeg_R1(b)·outdeg_T(c); caps are ``SKEW_CAP_SLACK`` × the
+    largest, + 256.
+    Placement buffers hold a whole part (no reducer receives more)."""
+    from repro_torch.core import ChainCaps
+    from repro_torch.core.hashing import bucket_hash
+    (_, r1_dst), (s_src, s_dst), (t_src, _) = combo_edges(plan, combo, edges)
+    k0, k1 = combo.grid_shape
+    reducer = (bucket_hash(torch.as_tensor(s_src), k0, salt=0).numpy() * k1
+               + bucket_hash(torch.as_tensor(s_dst), k1, salt=1).numpy())
+    indeg = np.bincount(r1_dst, minlength=SKEW_NODES).astype(np.float64)
+    outdeg = np.bincount(t_src, minlength=SKEW_NODES).astype(np.float64)
+    mid = np.bincount(reducer, weights=indeg[s_src], minlength=k0 * k1)
+    join = np.bincount(reducer, weights=indeg[s_src] * outdeg[s_dst],
+                       minlength=k0 * k1)
+
+    def per(x):
+        return int(SKEW_CAP_SLACK * x) + 256
+    place = per(max(combo.sizes))
+    return ChainCaps(recv=place, local=place, mid=per(mid.max()),
+                     out=per(join.max()), join=per(join.max()),
+                     agg=per(join.max()))
+
+
+def make_skew_workload(n_edges: int, seed: int, device) -> SkewWorkload:
+    import scipy.sparse as sp
+    from repro_torch.core import ChainQuery, detect_chain_skew
+    from repro_torch.data.graphs import zipf_edges
+
+    t0 = time.perf_counter()
+    src, dst = zipf_edges(SKEW_NODES, n_edges, SKEW_ALPHA, seed=seed)
+    edges = [(src, dst)] * 3
+    plan = detect_chain_skew(ChainQuery.three_way(), edges, SKEW_K,
+                             device=device)
+    check(plan is not None, f"skew workload {n_edges}: no heavy key")
+    grids = [c.grid_shape for c in plan.combos]
+    check(grids == SKEW_GRIDS,
+          f"skew plan {n_edges}: combinations {grids}, want {SKEW_GRIDS}")
+    caps = {c.heavy_dims: combo_caps(plan, c, edges) for c in plan.combos}
+    n = SKEW_NODES
+    adj = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    a3 = (adj @ adj @ adj).tocoo()
+    keys = a3.row.astype(np.int64) * n + a3.col
+    order = np.argsort(keys)
+    j3 = float(a3.data.sum())
+    log(f"skew workload: zipf({n}, {n_edges}, {SKEW_ALPHA}) k={SKEW_K}: "
+        f"heavy {[h.tolist() for h in plan.heavy]}; combos "
+        + "; ".join(f"{c.heavy_dims} {c.grid_shape} sizes {c.sizes} caps "
+                    f"{dataclasses.asdict(caps[c.heavy_dims])}"
+                    for c in plan.combos)
+        + f"; j3={j3:.0f} nnz(A^3)={a3.nnz}; plan cost {plan.cost():.0f}; "
+        f"host set-up {time.perf_counter() - t0:.1f} s")
+    return SkewWorkload(n_edges, edges, plan, caps, j3, keys[order],
+                        a3.data[order])
+
+
+def plain_shares_load(sw: SkewWorkload, device) -> float:
+    """``max_bucket_load`` of plain Shares on the base grid, for
+    comparison: its placement only, measured as the executor measures
+    it — its join does not fit (the hot reducer holds every path
+    through the heavy keys)."""
+    from repro_torch.core import (ChainCaps, ChainQuery, SimGrid,
+                                  edge_relation, scatter_to_grid)
+    from repro_torch.core.executor import place_relation
+
+    query, base = ChainQuery.three_way(), sw.plan.base_shape
+    whole = sw.n_edges + 256
+    caps = ChainCaps(recv=whole, mid=1, out=1, local=whole)
+    load = 0.0
+    for j, (s, d) in enumerate(sw.edges):
+        rel = scatter_to_grid(edge_relation(s, d, names=query.schema(j),
+                                            device=device), base)
+        _, ovf, sk = place_relation(SimGrid(base), query, j, rel, caps=caps,
+                                    measure_skew=True)
+        check(not bool(ovf), f"plain Shares placement {j}: overflow")
+        load = max(load, float(sk))
+    return load
+
+
+def run_shares_skew(sw: SkewWorkload, device: torch.device) -> dict:
+    """1,3JS and 1,3JSA through ``shares_skew_chain`` with
+    ``measure_skew=True``; returns the launches per kernel."""
+    from repro_torch.core import ChainQuery, edge_relation, shares_skew_chain
+    from repro_torch.kernels import ops
+
+    on_gpu = device.type == "cuda"
+    launches = {name: 0 for name in ops.LAUNCHES}
+    plan = sw.plan
+    w = Workload(SKEW_NODES, sw.edges, None, None, sw.a3_keys, sw.a3_vals)
+    for name, aggregate in (("1,3JS", False), ("1,3JSA", True)):
+        query = ChainQuery.three_way(aggregate=aggregate)
+        rels = [edge_relation(s, d, names=query.schema(j), device=device)
+                for j, (s, d) in enumerate(sw.edges)]
+        if on_gpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out, stats, overflow = shares_skew_chain(
+            query, rels, plan, caps=lambda c: sw.caps[c.heavy_dims],
+            measure_skew=True)
+        if on_gpu:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if on_gpu else 0
+        del rels
+        check(not bool(overflow), f"{name}: overflow")
+        read, shuffled = float(stats["read"]), float(stats["shuffled"])
+        total = float(stats["total"])
+        load = float(stats["max_bucket_load"])
+        if aggregate:
+            # Each combination charges its aggregation round: 2·|join|
+            # more; past 2^24 the float32 total holds to one ulp.
+            want = plan.cost() + 2.0 * sw.j3
+            tol = float(np.spacing(np.float32(want)))
+            check(abs(total - want) <= tol,
+                  f"{name}: measured {total} != plan cost + 2 j3 = {want}")
+        else:
+            want = plan.cost()
+            check(read == plan.read_cost() and shuffled == plan.shuffle_cost(),
+                  f"{name}: measured read/shuffled {read}/{shuffled} != plan "
+                  f"{plan.read_cost()}/{plan.shuffle_cost()}")
+        rows = int(out.count())
+        check(aggregate or rows == sw.j3, f"{name}: {rows} rows, j3 = {sw.j3}")
+        groups = check_against_a3(w, out, aggregate)
+        check(0 < load <= read, f"{name}: max_bucket_load {load}")
+        if on_gpu:
+            for kname in ("hash_histogram",) + (("segment_sum",)
+                                                if aggregate else ()):
+                check(counts[kname] > 0,
+                      f"{name}: the {kname} kernel was never launched")
+        for kname, c in counts.items():
+            launches[kname] += c
+        del out
+        if on_gpu:
+            torch.cuda.empty_cache()
+        log(f"skew path {name:6s} ok: edges={sw.n_edges} rows={rows} "
+            f"groups={groups} read={read:.0f} shuffled={shuffled:.0f} "
+            f"total={total:.0f} analytic={want:.0f} max_bucket_load={load:.0f}"
+            f" plain_1,3J_max_bucket_load={plain_shares_load(sw, device):.0f}"
+            f" (not asserted) wall_ms={wall_ms:.1f} peak_bytes={peak} "
+            f"launches={counts}")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Optional: where the time goes (--profile)
 # ---------------------------------------------------------------------------
 
-def profile_runs(w: Workload, device: torch.device, out_dir: Path) -> None:
-    """Run every strategy once more under ``torch.profiler``: print the
-    device busy time against the wall time and the ops that take most
-    device time, and write each run's table to ``out_dir``."""
+def profile_runs(w: Workload, sw: SkewWorkload, device: torch.device,
+                 out_dir: Path) -> None:
+    """Run every main-path strategy and both SharesSkew queries once
+    more under ``torch.profiler``: print the device busy time against
+    the wall time and the ops that take most device time, and write
+    each run's table to ``out_dir``."""
+    from repro_torch.core import (ChainQuery, SimGrid, chain_edge_inputs,
+                                  edge_relation, execute_chain,
+                                  shares_skew_chain)
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, aggregate, strategy, impl, measure in RUNS:
+        query = ChainQuery.three_way(aggregate=aggregate)
+        rels = chain_edge_inputs(query, w.edges, GRID, device=device)
+        label = f"{impl}{' measure_skew' if measure else ''}"
+        _profiled(device, out_dir, name, label, lambda: execute_chain(
+            SimGrid(GRID), query, rels, strategy=strategy, caps=w.caps,
+            join_impl=impl, measure_skew=measure))
+        del rels
+    for name, aggregate in (("1,3JS", False), ("1,3JSA", True)):
+        query = ChainQuery.three_way(aggregate=aggregate)
+        rels = [edge_relation(s, d, names=query.schema(j), device=device)
+                for j, (s, d) in enumerate(sw.edges)]
+        _profiled(device, out_dir, name, "shares_skew",
+                  lambda: shares_skew_chain(
+                      query, rels, sw.plan,
+                      caps=lambda c: sw.caps[c.heavy_dims],
+                      measure_skew=True))
+        del rels
+
+
+def _profiled(device: torch.device, out_dir: Path, name: str, label: str,
+              run) -> None:
+    """One ``run()`` (returning ``(out, stats, overflow)``) under the
+    profiler: its wall and device-busy time and its top ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import ChainQuery, SimGrid, chain_edge_inputs
-    from repro_torch.core import execute_chain
 
     on_gpu = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_gpu
                                      else [])
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for name, aggregate, strategy, impl in RUNS:
-        query = ChainQuery.three_way(aggregate=aggregate)
-        rels = chain_edge_inputs(query, w.edges, GRID, device=device)
+    if on_gpu:
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out, _, overflow = run()
         if on_gpu:
             torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            out, _, overflow = execute_chain(
-                SimGrid(GRID), query, rels, strategy=strategy, caps=w.caps,
-                join_impl=impl)
-            if on_gpu:
-                torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        check(not bool(overflow), f"profile {name} {impl}: overflow")
-        del out, rels
-        events = prof.key_averages()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(overflow), f"profile {name} {label}: overflow")
+    del out
+    events = prof.key_averages()
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        busy_ms = sum(dev_us(e) for e in events
-                      if e.device_type == DeviceType.CUDA) / 1e3
-        # aten ops by the device time of the kernels they launch
-        # themselves; the port's own kernels launch outside any aten op.
-        ops = sorted(((dev_us(e) / 1e3, e.key) for e in events
-                      if e.device_type == DeviceType.CPU
-                      and e.key.startswith("aten::") and dev_us(e) > 0),
-                     reverse=True)
-        own = sorted(((dev_us(e) / 1e3, e.key) for e in events
-                      if e.device_type == DeviceType.CUDA
-                      and ("segment_sum" in e.key or "probe_counts" in e.key)),
-                     reverse=True)
-        top = ", ".join(f"{k} {ms:.1f}" for ms, k in ops[:8] + own)
-        share = busy_ms / wall_ms if wall_ms else 0.0
-        log(f"profile {name:6s} {impl:10s}: wall_ms={wall_ms:.1f} "
-            f"device_busy_ms={busy_ms:.1f} busy_share={share:.3f}; "
-            f"device ms by op: {top}")
-        label = f"{name.replace(',', '_')}_{impl}"
-        (out_dir / f"profile_{label}.txt").write_text(events.table(
-            sort_by="self_device_time_total" if on_gpu
-            else "self_cpu_time_total", row_limit=60))
-        if on_gpu:
-            torch.cuda.empty_cache()
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    # aten ops by the device time of the kernels they launch themselves;
+    # the port's own kernels launch outside any aten op.
+    ops = sorted(((dev_us(e) / 1e3, e.key) for e in events
+                  if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::") and dev_us(e) > 0),
+                 reverse=True)
+    own = sorted(((dev_us(e) / 1e3, e.key) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and any(k in e.key for k in KERNELS)),
+                 reverse=True)
+    top = ", ".join(f"{k} {ms:.1f}" for ms, k in ops[:8] + own)
+    share = busy_ms / wall_ms if wall_ms else 0.0
+    log(f"profile {name:6s} {label:10s}: wall_ms={wall_ms:.1f} "
+        f"device_busy_ms={busy_ms:.1f} busy_share={share:.3f}; "
+        f"device ms by op: {top}")
+    stem = f"{name.replace(',', '_')}_{label.replace(' ', '_')}"
+    (out_dir / f"profile_{stem}.txt").write_text(events.table(
+        sort_by="self_device_time_total" if on_gpu
+        else "self_cpu_time_total", row_limit=60))
+    if on_gpu:
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -483,8 +907,9 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
-                    help="also trace every strategy once with torch.profiler"
-                         " and write the tables to DIR")
+                    help="also trace every main-path and SharesSkew run "
+                         "once with torch.profiler and write the tables "
+                         "to DIR")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -509,16 +934,24 @@ def main(argv=None) -> int:
 
     w = make_workload(args.scale, args.seed)
     dev = torch.device("cuda")
+    skew = make_skew_workload(SKEW_EDGES, args.seed, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     phases = {"segment_sum": segment_sum_phase(w, gen, args.iters, dev),
-              "probe_counts": probe_counts_phase(w, gen, args.iters, dev)}
+              "probe_counts": probe_counts_phase(w, gen, args.iters, dev),
+              "hash_histogram": hash_histogram_phase(w, gen, args.iters, dev),
+              "flash_attention": flash_attention_phase(gen, args.iters, dev)}
 
     launches = run_main_path(w, dev)
+    for counts in (run_shares_skew(skew, dev), run_attention_entry(dev)):
+        for name, c in counts.items():
+            launches[name] += c
     if args.profile is not None:
-        profile_runs(w, dev, args.profile)
+        profile_runs(w, skew, dev, args.profile)
 
-    # The heaviest main-path case of each kernel goes into the line.
-    headline = {"segment_sum": "final", "probe_counts": "one_round_join2"}
+    # The heaviest case of each kernel's path goes into the line.
+    headline = {"segment_sum": "final", "probe_counts": "one_round_join2",
+                "hash_histogram": "cascade_hop2",
+                "flash_attention": "prefill_bfloat16"}
     kernels = []
     for name, meta in KERNELS.items():
         res = phases[name][headline[name]]

@@ -12,7 +12,7 @@ Public API of this slice, by layer:
 
   Physical executor
     execute_chain / execute_query, one_round_chain / one_round_query,
-    cascade_chain / cascade_query, two_way_join,
+    cascade_chain / cascade_query, shares_skew_chain, two_way_join,
     distributed_groupby_sum, project_product,
     chain_edge_inputs / query_table_inputs / scatter_to_grid,
     ChainCaps, default_chain_caps / default_query_caps /
@@ -24,6 +24,10 @@ Public API of this slice, by layer:
 
   Statistics, cost model, planner (copies of the JAX package's)
     ChainStats, chain_stats_exact, plan_chain, plan_query, ...
+
+  Skew layer
+    heavy_hitters, chain_key_sketch, detect_chain_skew,
+    SkewSplitPlan, SkewCombo, balance_threshold
 
   Workloads
     edge_relation, oracle_a3, oracle_triangles
@@ -37,20 +41,23 @@ from .executor import (ChainCaps, cascade_chain, cascade_query,
                        chain_edge_inputs, default_chain_caps,
                        default_mapside_caps, default_query_caps,
                        execute_chain, execute_query, one_round_chain,
-                       one_round_query, query_table_inputs, scatter_to_grid)
+                       one_round_query, query_table_inputs, scatter_to_grid,
+                       shares_skew_chain)
 from .local import (fused_sort_merge_join, groupby_sum, groupby_sum_multipass,
                     local_join, local_join_allpairs, sort_merge_join,
                     sort_rows)
 from .aggregation import distributed_groupby_sum, project_product
-from .cost_model import (ChainStats, JoinStats, QueryStats, chain_replications,
-                         cost_chain_cascade, cost_chain_cascade_pushdown,
-                         cost_chain_one_round, cost_chain_one_round_agg,
-                         integer_shares)
+from .cost_model import (ChainStats, JoinStats, QueryStats, balance_threshold,
+                         chain_replications, cost_chain_cascade,
+                         cost_chain_cascade_pushdown, cost_chain_one_round,
+                         cost_chain_one_round_agg, cost_chain_shares_skew,
+                         integer_shares, skew_clamped_shape)
 from .planner import (ChainPlan, Plan, QueryPlan, chain_stats_exact,
                       crossover_reducers_chain, plan_chain, plan_query,
                       plan_three_way, query_stats_exact, self_join_stats,
                       self_join_stats_exact)
-from .skew import chain_key_sketch
+from .skew import (SkewCombo, SkewSplitPlan, chain_key_sketch,
+                   detect_chain_skew, heavy_hitters)
 from .matmul import edge_relation, oracle_a3, oracle_triangles
 
 __all__ = [
@@ -58,19 +65,22 @@ __all__ = [
     "Grid", "SimGrid", "broadcast_along", "shuffle_by_bucket",
     "JoinQuery", "QueryAggregate", "ChainQuery", "ChainAggregate",
     "ChainCaps", "execute_chain", "execute_query", "one_round_chain",
-    "one_round_query", "cascade_chain", "cascade_query", "two_way_join",
+    "one_round_query", "cascade_chain", "cascade_query", "shares_skew_chain",
+    "two_way_join",
     "distributed_groupby_sum", "project_product",
     "chain_edge_inputs", "query_table_inputs", "scatter_to_grid",
     "default_chain_caps", "default_query_caps", "default_mapside_caps",
     "sort_merge_join", "fused_sort_merge_join", "groupby_sum",
     "groupby_sum_multipass", "local_join", "local_join_allpairs",
     "sort_rows",
-    "ChainStats", "JoinStats", "QueryStats", "chain_replications",
-    "cost_chain_cascade", "cost_chain_cascade_pushdown",
-    "cost_chain_one_round", "cost_chain_one_round_agg", "integer_shares",
+    "ChainStats", "JoinStats", "QueryStats", "balance_threshold",
+    "chain_replications", "cost_chain_cascade", "cost_chain_cascade_pushdown",
+    "cost_chain_one_round", "cost_chain_one_round_agg",
+    "cost_chain_shares_skew", "integer_shares", "skew_clamped_shape",
     "ChainPlan", "Plan", "QueryPlan", "chain_stats_exact",
     "crossover_reducers_chain", "plan_chain", "plan_query", "plan_three_way",
     "query_stats_exact", "self_join_stats", "self_join_stats_exact",
-    "chain_key_sketch",
+    "SkewCombo", "SkewSplitPlan", "chain_key_sketch", "detect_chain_skew",
+    "heavy_hitters",
     "edge_relation", "oracle_a3", "oracle_triangles",
 ]

@@ -8,15 +8,21 @@ Port of ``src/repro/core/executor.py`` for this slice:
 * :func:`cascade_query` / :func:`cascade_chain` — left-deep cascades of
   two-way rounds, the chain form with the paper's aggregation pushdown
   (N−1,NJ and N−1,NJA);
+* :func:`shares_skew_chain` — the skew-aware *SharesSkew* union: one
+  Shares sub-join per heavy/residual combination of the join
+  attributes, each on the plain hypercube with its heavy dims clamped
+  to share 1, driven by a :class:`~repro_torch.core.skew.SkewSplitPlan`;
 * :func:`execute_chain` / :func:`execute_query` — the entry points;
 * input placement (:func:`chain_edge_inputs`, :func:`query_table_inputs`)
   and capacity sizing (``default_*_caps``).
 
 Cost accounting is the paper's: each round charges read + shuffled
 tuples, as float32 device scalars; the final aggregator of a pushdown
-cascade is uncharged unless requested.  ``measure_skew``,
-``overlap_chunks > 1``, the map-side cascade and SharesSkew are later
-slices and raise ``NotImplementedError``.
+cascade is uncharged.  ``measure_skew=True`` adds
+``stats["max_bucket_load"]``, the most-loaded reducer of any map-phase
+hop, from the ``hash_histogram`` kernel.  ``overlap_chunks > 1`` and
+the map-side cascade are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,13 +34,14 @@ import numpy as np
 import torch
 
 from .. import config
+from ..kernels.hash_partition import bucket_counts
 from . import hashing
 from .aggregation import distributed_groupby_sum, project_product
 from .cost_model import ChainStats, chain_replications
-from .local import local_join
+from .local import groupby_sum, local_join
 from .plan import ChainQuery, JoinQuery
-from .relation import Relation
-from .shuffle import Grid, broadcast_along, shuffle_by_bucket
+from .relation import Relation, concat
+from .shuffle import Grid, SimGrid, broadcast_along, shuffle_by_bucket
 from .two_way import two_way_join
 
 Stats = Dict[str, torch.Tensor]
@@ -62,12 +69,19 @@ class ChainCaps:
 
 
 def merge_stats(*stats: Stats) -> Stats:
-    """Sum read/shuffled across rounds (float32, in round order)."""
+    """Sum read/shuffled across rounds (float32, in round order);
+    ``max_bucket_load`` maxes."""
     out: Stats = {}
     for s in stats:
         for k, v in s.items():
-            if k != "total":
-                out[k] = out[k] + v if k in out else v
+            if k == "total":
+                continue
+            if k not in out:
+                out[k] = v
+            elif k == "max_bucket_load":
+                out[k] = torch.maximum(out[k], v)
+            else:
+                out[k] = out[k] + v
     out["total"] = out.get("read", 0.0) + out.get("shuffled", 0.0)
     return out
 
@@ -85,12 +99,23 @@ def _not_ported(what: str, item: str):
                                f"(ROADMAP {item})")
 
 
-def _check_options(measure_skew: bool, overlap_chunks: int) -> None:
-    if measure_skew:
-        raise _not_ported("measure_skew=True (the hash_histogram kernel)",
-                          "B3")
+def _check_options(overlap_chunks: int) -> None:
     if overlap_chunks > 1:
         raise _not_ported("overlap_chunks > 1 (the overlapped shuffle)", "A9")
+
+
+def _zero(rel: Relation) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=rel.device)
+
+
+def _hop_load(grid: Grid, rel: Relation, key: str, n_buckets: int,
+              salt: int) -> torch.Tensor:
+    """Peak per-reducer load of one map-phase hop (the skew diagnostic):
+    the global bucket histogram of this hop's hash — per-device
+    ``bucket_counts`` (the ``hash_histogram`` kernel on a GPU) summed
+    over the grid — and its max, as float32."""
+    hist = bucket_counts(rel.col(key), rel.valid, n_buckets, salt=salt)
+    return grid.reduce_sum(hist).max().to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -112,18 +137,24 @@ def _close_cycle(acc: Relation, extras: Sequence[str]) -> Relation:
 
 
 def place_relation(grid: Grid, query: JoinQuery, j: int, rel: Relation, *,
-                   caps: ChainCaps) -> Tuple[Relation, torch.Tensor]:
+                   caps: ChainCaps, measure_skew: bool = False,
+                   ) -> Tuple[Relation, torch.Tensor, torch.Tensor]:
     """The map/placement phase of one relation on the Shares hypercube:
     route to the pinned dims (one shuffle hop per hashed dim), replicate
-    over the rest.  Returns (placed shard, overflow)."""
+    over the rest.  Returns (placed shard, overflow, peak bucket load —
+    0 unless ``measure_skew``)."""
     overflow = _false(rel)
+    skew = _zero(rel)
     cur = rel
     hashed = query.hashed_dims(j)
     for d in hashed:                     # route to the pinned dims
         if grid.shape[d] == 1:
             continue                     # clamped dim: one bucket, no hop
-        bucket = hashing.bucket_hash(cur.col(query.dim_attr(d)),
-                                     grid.shape[d], salt=d)
+        attr = query.dim_attr(d)
+        if measure_skew:
+            skew = torch.maximum(
+                skew, _hop_load(grid, cur, attr, grid.shape[d], salt=d))
+        bucket = hashing.bucket_hash(cur.col(attr), grid.shape[d], salt=d)
         cur, ovf, _ = shuffle_by_bucket(grid, cur, bucket, d, caps.recv,
                                         local_capacity=caps.local)
         overflow = overflow | ovf
@@ -132,7 +163,7 @@ def place_relation(grid: Grid, query: JoinQuery, j: int, rel: Relation, *,
             continue
         cur, ovf = broadcast_along(grid, cur, d, caps.local)
         overflow = overflow | ovf
-    return cur, overflow
+    return cur, overflow, skew
 
 
 def reduce_side_fn(query: JoinQuery, order: Sequence[int], *,
@@ -165,6 +196,7 @@ def reduce_side_fn(query: JoinQuery, order: Sequence[int], *,
 
 def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                     caps: ChainCaps, join_order: Optional[Sequence[int]] = None,
+                    measure_skew: bool = False,
                     join_impl: str = "sort_merge",
                     ) -> Tuple[Relation, Stats, torch.Tensor]:
     """One MapReduce round: place every relation on the join-attribute
@@ -183,10 +215,13 @@ def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
     order = tuple(join_order) if join_order is not None \
         else query.default_join_order()
 
+    skew = _zero(rels[0])
     placed: List[Relation] = []
     for j, rel in enumerate(rels):
-        cur, ovf = place_relation(grid, query, j, rel, caps=caps)
+        cur, ovf, sk = place_relation(grid, query, j, rel, caps=caps,
+                                      measure_skew=measure_skew)
         overflow = overflow | ovf
+        skew = torch.maximum(skew, sk)
         placed.append(cur)
     # Measured shuffle = tuples resident at reducers after placement
     # (each relation counted with its replication factor).
@@ -200,6 +235,8 @@ def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
         "read": read.to(torch.float32),
         "shuffled": received.to(torch.float32),
     }
+    if measure_skew:
+        stats["max_bucket_load"] = skew
     if query.aggregate is None:
         return joined, stats, overflow
 
@@ -218,11 +255,13 @@ def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
 
 
 def one_round_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
-                    caps: ChainCaps, join_impl: str = "sort_merge",
+                    caps: ChainCaps, measure_skew: bool = False,
+                    join_impl: str = "sort_merge",
                     ) -> Tuple[Relation, Stats, torch.Tensor]:
     """The chain instance of :func:`one_round_query` (default join order
     ``0..N−1`` on the rank-(N−1) grid)."""
-    return one_round_query(grid, query, rels, caps=caps, join_impl=join_impl)
+    return one_round_query(grid, query, rels, caps=caps,
+                           measure_skew=measure_skew, join_impl=join_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +285,7 @@ def _final_aggregate(grid: Grid, query: JoinQuery, left: Relation,
 
 def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                   caps: ChainCaps, join_order: Optional[Sequence[int]] = None,
-                  local_combine: bool = False,
+                  local_combine: bool = False, measure_skew: bool = False,
                   join_impl: str = "sort_merge",
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
     """N−1 rounds of two-way joins along a connected left-deep
@@ -260,9 +299,11 @@ def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
     order = tuple(join_order) if join_order is not None \
         else query.default_join_order()
     steps = query.join_steps(order)
+    k_flat = int(np.prod(grid.shape, dtype=np.int64))
 
     all_stats: List[Stats] = []
     overflow = _false(rels[0])
+    skew = _zero(rels[0])
     left = rels[order[0]]
     left_cap = None                       # None => first round uses caps.recv
     value_cols: List[str] = \
@@ -275,6 +316,11 @@ def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
         recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
         local = caps.local if left_cap is None else max(left_cap, caps.recv)
         out_cap = caps.out if i == n - 2 else caps.mid
+        if measure_skew:
+            skew = torch.maximum(skew, _hop_load(grid, left, key, k_flat,
+                                                 salt=i))
+            skew = torch.maximum(skew, _hop_load(grid, right, key, k_flat,
+                                                 salt=i))
         left, st, ovf = two_way_join(
             grid, left, right, key, key, recv_capacity=recv,
             out_capacity=out_cap, local_capacity=local, salt=i,
@@ -293,12 +339,15 @@ def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                                              caps, local_combine)
         overflow = overflow | ovf_f
         all_stats.append(st_f)
-    return left, merge_stats(*all_stats), overflow
+    stats = merge_stats(*all_stats)
+    if measure_skew:
+        stats["max_bucket_load"] = skew
+    return left, stats, overflow
 
 
 def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                   caps: ChainCaps, pushdown: bool = True,
-                  local_combine: bool = False,
+                  local_combine: bool = False, measure_skew: bool = False,
                   join_impl: str = "sort_merge",
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
     """N−1 rounds of two-way joins, left-deep in query order.
@@ -313,9 +362,11 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     agg = query.aggregate
     if agg is None:
         pushdown = False
+    k_flat = int(np.prod(grid.shape, dtype=np.int64))
 
     all_stats: List[Stats] = []
     overflow = _false(rels[0])
+    skew = _zero(rels[0])
     left = rels[0]
     left_cap = None                       # None => first round uses caps.recv
     value_cols: List[str] = [query.values[0]] if query.values[0] else []
@@ -325,6 +376,11 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
         recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
         local = caps.local if left_cap is None else max(left_cap, caps.recv)
         out_cap = caps.out if j == n - 1 else caps.mid
+        if measure_skew:
+            skew = torch.maximum(skew, _hop_load(grid, left, key, k_flat,
+                                                 salt=j - 1))
+            skew = torch.maximum(skew, _hop_load(grid, rels[j], key, k_flat,
+                                                 salt=j - 1))
         left, st, ovf = two_way_join(
             grid, left, rels[j], key, key, recv_capacity=recv,
             out_capacity=out_cap, local_capacity=local, salt=j - 1,
@@ -358,7 +414,122 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
         overflow = overflow | ovf_f
         if not pushdown:
             all_stats.append(st_f)
-    return left, merge_stats(*all_stats), overflow
+    stats = merge_stats(*all_stats)
+    if measure_skew:
+        stats["max_bucket_load"] = skew
+    return left, stats, overflow
+
+
+# ---------------------------------------------------------------------------
+# SkewSplit lowering: the SharesSkew union of per-combination sub-joins
+# ---------------------------------------------------------------------------
+
+def _heavy_member(col: torch.Tensor, heavy) -> torch.Tensor:
+    """Membership of a key column in a (small, host-side) heavy set."""
+    heavy = np.asarray(heavy)
+    if heavy.size == 0:
+        return torch.zeros(col.shape, dtype=torch.bool, device=col.device)
+    # Compare in the column's own dtype: an int32 cast here would
+    # truncate int64 heavy keys and misclassify their tuples.
+    hv = torch.as_tensor(heavy, device=col.device).to(col.dtype)
+    return torch.isin(col, hv)
+
+
+def _combo_filter(query: ChainQuery, plan, combo, j: int,
+                  rel: Relation) -> Relation:
+    """Relation j's part for one combination: keep a tuple iff, for each
+    of the relation's own join attributes, its heavy/residual status
+    matches the combination's choice for that dim."""
+    mask = torch.ones_like(rel.valid)
+    for d in query.hashed_dims(j):
+        member = _heavy_member(rel.col(query.dim_attr(d)), plan.heavy[d])
+        mask = mask & (member if combo.heavy_dims[d] else ~member)
+    return rel.filter(mask)
+
+
+def _flatten_grid(rel: Relation) -> Relation:
+    """Collapse the leading grid axes into one flat buffer."""
+    return rel.map(lambda c: c.reshape(-1))
+
+
+def _empty_skew_result(query: ChainQuery, rels: Sequence[Relation],
+                       measure_skew: bool):
+    """The result of a plan with no combinations: every combination lost
+    an input part, which proves the join empty — an empty relation at
+    zero cost, keyed in the inputs' own dtypes."""
+    zero = _zero(rels[0])
+    stats: Stats = {"read": zero, "shuffled": zero, "total": zero}
+    if measure_skew:
+        stats["max_bucket_load"] = zero
+    key_dt: dict = {}
+    for j, rel in enumerate(rels):
+        for a in query.relations[j]:
+            key_dt.setdefault(a, rel.col(a).dtype)
+    if query.aggregate is not None:
+        schema = {k: key_dt.get(k, config.default_key_dtype())
+                  for k in query.aggregate.keys}
+        schema[query.aggregate.out] = torch.float32
+    else:
+        schema = {a: key_dt.get(a, config.default_key_dtype())
+                  for a in query.attrs}
+        for j, v in enumerate(query.values):
+            if v is not None:
+                schema[v] = rels[j].col(v).dtype
+    return (Relation.empty(1, schema, rels[0].device), stats,
+            _false(rels[0]))
+
+
+def shares_skew_chain(query: ChainQuery, rels: Sequence[Relation], plan, *,
+                      caps, measure_skew: bool = False,
+                      join_impl: str = "sort_merge",
+                      ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """SkewSplit lowering (SharesSkew, 1,NJS): one Shares sub-join per
+    heavy/residual combination, unioned.
+
+    ``rels`` are *flat* (unscattered) relations in query order; ``plan``
+    is a :class:`~repro_torch.core.skew.SkewSplitPlan`.  Each combination
+    filters every relation to its part, scatters the parts onto its own
+    ``SimGrid(combo.grid_shape)`` (the plain integer-share hypercube
+    with heavy dims clamped to share 1 — heavy tuples are replicated
+    over the surviving dims) and runs :func:`one_round_chain`.  ``caps``
+    is a :class:`ChainCaps` for every combination, or a callable
+    ``combo -> ChainCaps``.
+
+    Results union disjointly across combinations; an aggregated query's
+    partial sums merge in a final local group-by, uncharged like the
+    paper's final aggregator.  Stats sum across combinations
+    (``max_bucket_load`` maxes), so the measured total equals
+    ``plan.cost()`` for enumeration and ``plan.cost() + 2·|full join|``
+    for aggregated queries.  A plan with no combinations proves the
+    join empty: an empty relation at zero cost.
+    """
+    query.check_relations(rels)
+    if not plan.combos:
+        return _empty_skew_result(query, rels, measure_skew)
+    all_stats: List[Stats] = []
+    parts: List[Relation] = []
+    overflow = _false(rels[0])
+    for combo in plan.combos:
+        sub = [scatter_to_grid(_combo_filter(query, plan, combo, j, rel),
+                               combo.grid_shape)
+               for j, rel in enumerate(rels)]
+        combo_caps = caps(combo) if callable(caps) else caps
+        out, st, ovf = one_round_chain(SimGrid(combo.grid_shape), query, sub,
+                                       caps=combo_caps,
+                                       measure_skew=measure_skew,
+                                       join_impl=join_impl)
+        del sub
+        parts.append(_flatten_grid(out))
+        all_stats.append(st)
+        overflow = overflow | ovf
+
+    result = concat(parts)
+    del parts
+    if query.aggregate is not None:
+        agg = query.aggregate
+        result, ovf_m = groupby_sum(result, tuple(agg.keys), agg.out)
+        overflow = overflow | ovf_m
+    return result, merge_stats(*all_stats), overflow
 
 
 # ---------------------------------------------------------------------------
@@ -380,27 +551,37 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     ``join_impl`` selects the reduce-side join for every strategy:
     ``"sort_merge"`` (default), ``"fused"`` (rank-packed sorts and the
     ``probe_counts`` kernel) or the ``"all_pairs"`` oracle — identical
-    tuple sets, stats and overflow flags.  Returns ``(result, stats,
+    tuple sets, stats and overflow flags.  ``measure_skew=True`` adds
+    ``stats["max_bucket_load"]``.  Returns ``(result, stats,
     overflow)``; everything stays on the inputs' device.
+
+    The skew-aware strategy ``"shares_skew"`` (1,NJS) cannot run on a
+    single pre-scattered grid — its sub-joins each use their own clamped
+    grid — so it has its own entry point, :func:`shares_skew_chain`,
+    taking flat relations plus a ``SkewSplitPlan``.
     """
-    _check_options(measure_skew, overlap_chunks)
+    _check_options(overlap_chunks)
     if strategy == "mapside":
         raise _not_ported("strategy 'mapside' (the partitioned store)", "A11")
     if strategy == "shares_skew":
-        raise _not_ported("strategy 'shares_skew' (SharesSkew)", "A10")
+        raise ValueError(
+            "shares_skew runs per-combination grids; call "
+            "shares_skew_chain(query, flat_rels, plan, caps=...) with the "
+            "SkewSplitPlan from repro_torch.core.skew.detect_chain_skew")
     if strategy == "one_round":
         return one_round_chain(grid, query, rels, caps=caps,
+                               measure_skew=measure_skew,
                                join_impl=join_impl)
     if strategy == "cascade":
         return cascade_chain(grid, query, rels, caps=caps, pushdown=False,
                              local_combine=local_combine,
-                             join_impl=join_impl)
+                             measure_skew=measure_skew, join_impl=join_impl)
     if strategy == "cascade_pushdown":
         if query.aggregate is None:
             raise ValueError("cascade_pushdown needs an aggregated query")
         return cascade_chain(grid, query, rels, caps=caps, pushdown=True,
                              local_combine=local_combine,
-                             join_impl=join_impl)
+                             measure_skew=measure_skew, join_impl=join_impl)
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
@@ -413,16 +594,20 @@ def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
     """Execute a general :class:`JoinQuery` — chain, cycle, star, or any
     connected hypergraph — with ``"one_round"``, ``"cascade"`` or (chains
-    in relation order only) ``"cascade_pushdown"``."""
-    _check_options(measure_skew, overlap_chunks)
+    in relation order only) ``"cascade_pushdown"``.  The skew-aware
+    ``"shares_skew"`` strategy stays chain-only — see
+    :func:`shares_skew_chain`."""
+    _check_options(overlap_chunks)
     if strategy == "one_round":
         return one_round_query(grid, query, rels, caps=caps,
-                               join_order=join_order, join_impl=join_impl)
+                               join_order=join_order,
+                               measure_skew=measure_skew,
+                               join_impl=join_impl)
     if strategy == "cascade":
         return cascade_query(grid, query, rels, caps=caps,
                              join_order=join_order,
                              local_combine=local_combine,
-                             join_impl=join_impl)
+                             measure_skew=measure_skew, join_impl=join_impl)
     if strategy == "cascade_pushdown":
         order = query.chain_attr_order()
         if query.aggregate is None or order is None or order != query.attrs:
@@ -431,9 +616,12 @@ def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                              "for endpoint aggregates on a chain)")
         return cascade_chain(grid, query, rels, caps=caps, pushdown=True,
                              local_combine=local_combine,
-                             join_impl=join_impl)
+                             measure_skew=measure_skew, join_impl=join_impl)
     if strategy == "shares_skew":
-        raise _not_ported("strategy 'shares_skew' (SharesSkew)", "A10")
+        raise ValueError(
+            "shares_skew runs per-combination grids and is chain-only; call "
+            "shares_skew_chain(query, flat_rels, plan, caps=...) with the "
+            "SkewSplitPlan from repro_torch.core.skew.detect_chain_skew")
     raise ValueError(f"unknown strategy {strategy!r}")
 
 

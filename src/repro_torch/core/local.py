@@ -27,7 +27,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..kernels import fused_join as fj
-from ..kernels import ops
+from ..kernels.segment_sum import segment_sum
 from .relation import Relation, scatter_drop
 
 
@@ -54,29 +54,6 @@ def partition_ranks(bucket: torch.Tensor, valid: torch.Tensor, n_buckets: int
     first = starts.gather(-1, sorted_key.to(torch.int64))
     rank = _iota(key.shape[-1], key) - first
     return order, sorted_key, rank
-
-
-def partition(rel: Relation, bucket: torch.Tensor, n_buckets: int,
-              cap_per_bucket: int) -> Tuple[Relation, torch.Tensor]:
-    """Scatter tuples into (..., n_buckets, cap_per_bucket) send buffers —
-    the map-phase emit (tuple -> destination reducer).  Returns the
-    bucketed Relation and the overflow flag per leading index (any
-    bucket fuller than its capacity)."""
-    order, sorted_bucket, rank = partition_ranks(bucket, rel.valid, n_buckets)
-    live = sorted_bucket < n_buckets
-    in_range = live & (rank < cap_per_bucket)
-    overflow = (live & (rank >= cap_per_bucket)).any(-1)
-    total = n_buckets * cap_per_bucket
-    dest = torch.where(in_range, sorted_bucket.to(torch.int64)
-                       * cap_per_bucket + rank, total)
-    lead = rel.valid.shape[:-1]
-
-    def scatter(sorted_col):
-        out = scatter_drop(sorted_col, dest, total)
-        return out.view(*lead, n_buckets, cap_per_bucket)
-
-    cols = {n: scatter(c.gather(-1, order)) for n, c in rel.cols.items()}
-    return Relation(cols, scatter(in_range)), overflow
 
 
 # ---------------------------------------------------------------------------
@@ -356,8 +333,8 @@ def groupby_sum(rel: Relation, keys: Tuple[str, ...], value: str,
 
     One stable lexicographic sort orders rows by (validity, keys...);
     run heads become segment ids and the per-segment sums go through
-    :func:`repro_torch.kernels.ops.segment_sum` (the CUDA kernel on a
-    GPU).  ``overflow`` is raised when the group count exceeds the
+    :func:`repro_torch.kernels.segment_sum.segment_sum` (the CUDA kernel
+    on a GPU).  ``overflow`` is raised when the group count exceeds the
     output capacity; the surviving groups are the first in key order.
     """
     out_cap = out_capacity if out_capacity is not None else rel.capacity
@@ -372,8 +349,8 @@ def groupby_sum(rel: Relation, keys: Tuple[str, ...], value: str,
         # sorted-ids case the kernel is built for.  Invalid rows get id
         # out_cap, dropped by the kernel.
         seg = torch.where(sorted_valid, seg_id, out_cap).to(torch.int32)
-        return ops.segment_sum(torch.where(sorted_valid, sorted_val, 0.0),
-                               seg, out_cap)
+        return segment_sum(torch.where(sorted_valid, sorted_val, 0.0),
+                           seg, out_cap)
 
     return _groupby_emit(sorted_valid, sorted_keys, keys, value, sums, out_cap)
 

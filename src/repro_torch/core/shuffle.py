@@ -4,8 +4,8 @@ Port of ``src/repro/core/shuffle.py``, SimGrid only.  A
 :class:`SimGrid` carries the grid axes as leading tensor axes; every
 per-device operator of this package is batched over leading axes, so
 per-device work runs on the whole grid in one call (the JAX package's
-``map_devices`` vmap has no counterpart), an all-to-all is a transpose
-and an all-gather a broadcast.  The
+``map_devices`` vmap has no counterpart), an all-to-all is one scatter
+into the receive shards and an all-gather a broadcast.  The
 ``torch.distributed`` grid (the JAX package's ``ShardGrid``) is a later
 slice.
 """
@@ -14,9 +14,10 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .local import partition
+from .local import partition_ranks
 from .relation import Relation, flatten_leading
 
 
@@ -26,11 +27,6 @@ class Grid:
     axes alike."""
 
     shape: Tuple[int, ...]
-
-    def all_to_all(self, x: Relation, grid_axis: int) -> Relation:
-        """Per-device x has leading axis of size shape[grid_axis] (bucket-
-        major send buffer); returns same shape, leading axis = source."""
-        raise NotImplementedError
 
     def all_gather(self, x: Relation, grid_axis: int) -> Relation:
         """Replicate per-device x along a grid axis -> leading axis=source."""
@@ -53,10 +49,6 @@ class SimGrid(Grid):
     @property
     def ndim(self) -> int:
         return len(self.shape)
-
-    def all_to_all(self, x: Relation, grid_axis: int) -> Relation:
-        # (*grid, K_dest, ...) -> swap the grid axis with the bucket axis.
-        return x.map(lambda a: a.transpose(grid_axis, self.ndim))
 
     def all_gather(self, x: Relation, grid_axis: int) -> Relation:
         # (*grid, ...) -> (*grid, K_src, ...) with out[g, s, ...] =
@@ -120,18 +112,55 @@ def shuffle_by_bucket(grid: Grid, rel: Relation, bucket: torch.Tensor,
     received K×recv buffers are compacted to ``local_capacity`` (default
     K·recv = lossless).  Returns (local Relation, global overflow flag,
     tuples sent per device).
+
+    The result is, bit for bit, the reference's partition into (K, recv)
+    send buffers → all-to-all → flatten → compact, but no send buffer is
+    built: a row's receive slot is the rows its destination takes from
+    earlier sources plus the row's rank among its source's rows for that
+    bucket, so every column scatters straight into the receive shards.
+    Memory is the shards', not K × recv per device.
     """
     k = grid.shape[grid_axis]
-    buf, ovf = partition(rel, bucket, k, recv_capacity)
     n_sent = rel.count()
-    recv = _inject("shuffle", grid.all_to_all(buf, grid_axis))
-    local = flatten_leading(recv)
-    del buf, recv
-    overflow = grid.reduce_any(ovf)
+    lead = rel.valid.shape[:-1]
+    order, sorted_bucket, rank = partition_ranks(bucket, rel.valid, k)
+    live = sorted_bucket < k
+    in_slot = live & (rank < recv_capacity)
+    overflow = grid.reduce_any((live & ~in_slot).any(-1))
+    # Rows each source puts in each destination's slot: (*grid, K).
+    starts = torch.searchsorted(sorted_bucket, torch.arange(
+        k + 1, device=rel.device, dtype=sorted_bucket.dtype).expand(
+            *lead, -1).contiguous())
+    sent = (starts[..., 1:] - starts[..., :-1]).clamp(max=recv_capacity)
+    dest = torch.where(live, sorted_bucket, 0).to(torch.int64)
+    stride = int(np.prod(grid.shape[grid_axis + 1:], dtype=np.int64))
+    device_idx = torch.arange(int(np.prod(lead, dtype=np.int64)),
+                              device=rel.device).view(*lead, 1)
+    source = device_idx // stride % k
     if local_capacity is not None and local_capacity < k * recv_capacity:
-        local, ovf_c = compact_to(grid, local, local_capacity)
-        overflow = overflow | ovf_c
-    return local, overflow, n_sent
+        cap = local_capacity
+        earlier = torch.cumsum(sent, grid_axis) - sent
+        pos = earlier.gather(-1, dest) + rank
+        received = sent.sum(grid_axis)        # per destination
+        overflow = overflow | (received > cap).any()
+    else:
+        cap = k * recv_capacity
+        pos = source * recv_capacity + rank
+    total = int(np.prod(lead, dtype=np.int64)) * cap
+    flat_sorted = torch.where(in_slot & (pos < cap),
+                              (device_idx + (dest - source) * stride) * cap
+                              + pos, total)
+    flat = torch.empty_like(flat_sorted).scatter_(-1, order, flat_sorted)
+    del order, sorted_bucket, rank, dest, pos, flat_sorted
+    flat = flat.reshape(-1)
+
+    def scatter(c):
+        out = c.new_zeros(total + 1)
+        out.scatter_(0, flat, c.reshape(-1))
+        return out[:total].view(*lead, cap)
+    local = Relation({n: scatter(c) for n, c in rel.cols.items()},
+                     scatter(torch.ones_like(rel.valid)))
+    return _inject("shuffle", local), overflow, n_sent
 
 
 def broadcast_along(grid: Grid, rel: Relation, grid_axis: int,

@@ -21,7 +21,9 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+_P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+_HIST = (_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P)
+_ATTN = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _LL, _LL, _P)
 #: One library per ``csrc/<name>.cu``, and its C entry points:
 #: (pointers..., sizes..., stream) -> ``cudaGetLastError()`` as int.
 SIGNATURES = {
@@ -30,6 +32,10 @@ SIGNATURES = {
         "probe_counts_i32": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
         "probe_counts_i64": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
     },
+    "hash_histogram": {"hash_histogram_i32": _HIST,
+                       "hash_histogram_i64": _HIST},
+    "flash_attention": {"flash_attention_f32": _ATTN,
+                        "flash_attention_bf16": _ATTN},
 }
 
 SOURCES = tuple(SIGNATURES)
@@ -43,6 +49,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+BACKENDS = ("auto", "kernel", "ref")
+
+
+def resolve(backend: str, t) -> str:
+    """``"kernel"`` or ``"ref"`` for a call on tensor ``t``: "auto" is
+    the kernel on a CUDA tensor and the plain version on a CPU one."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if backend == "auto":
+        return "kernel" if t.is_cuda else "ref"
+    return backend
 
 
 def build_dir() -> Path:

@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build, ops, ref
+from . import _build, ref
 
 __all__ = ["stable_key_order", "partition_order", "probe_counts"]
 
@@ -111,9 +111,9 @@ def _probe_counts_cuda(queries: torch.Tensor, sorted_keys: torch.Tensor
 
 def probe_counts(queries: torch.Tensor, sorted_keys: torch.Tensor, *,
                  backend: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatching wrapper (policy of ``kernels.ops``): the kernel on a
+    """Dispatching wrapper (``_build.resolve``): the kernel on a
     CUDA tensor, the plain version on a CPU tensor or with
     ``backend="ref"``.  Both return int32 counts, equal as integers."""
-    if ops.resolve(backend, queries) == "ref":
+    if _build.resolve(backend, queries) == "ref":
         return ref.probe_counts(queries, sorted_keys)
     return _probe_counts_cuda(queries, sorted_keys)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -34,3 +35,63 @@ def probe_counts(queries: torch.Tensor, sorted_keys: torch.Tensor
     lo = torch.searchsorted(sorted_keys, queries, side="left", out_int32=True)
     hi = torch.searchsorted(sorted_keys, queries, side="right", out_int32=True)
     return lo.clamp_(max=nr), hi.clamp_(max=nr)
+
+
+def histogram_block(n: int, block: int) -> int:
+    """Rows per histogram block for ``n`` keys: the JAX kernel's rule,
+    ``min(block, max(128, next_pow2(n)))``."""
+    return min(block, max(128, 1 << (max(n, 1) - 1).bit_length()))
+
+
+def hash_histogram(keys: torch.Tensor, valid: torch.Tensor, n_buckets: int,
+                   salt: int = 0, block: int = 1024) -> torch.Tensor:
+    """Per-block histogram of ``bucket_hash(keys)`` over valid rows:
+    keys/valid (..., N) -> (..., ceil(N / b), n_buckets) int32 with
+    ``b = histogram_block(N, block)``; the tail of the last block counts
+    nowhere."""
+    from ..core.hashing import bucket_hash
+    n = keys.shape[-1]
+    b = histogram_block(n, block)
+    n_blocks = -(-n // b)
+    lead = keys.shape[:-1]
+    batch = int(np.prod(lead, dtype=np.int64))
+    bucket = bucket_hash(keys, n_buckets, salt=salt).to(torch.int64)
+    blk = torch.arange(n, device=keys.device) // b
+    cell = blk * n_buckets + bucket
+    size = n_blocks * n_buckets
+    base = torch.arange(batch, device=keys.device).view(*lead, 1) * size
+    flat = torch.where(valid, cell + base, batch * size)   # sink slot
+    out = torch.zeros(batch * size + 1, dtype=torch.int32,
+                      device=keys.device)
+    out.scatter_add_(0, flat.reshape(-1),
+                     torch.ones(flat.numel(), dtype=torch.int32,
+                                device=keys.device))
+    return out[:batch * size].view(*lead, n_blocks, n_buckets)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: float | None = None
+              ) -> torch.Tensor:
+    """Attention over q (B, Hq, Sq, D) and k/v (B, Hkv, Skv, D), Hq a
+    multiple of Hkv (GQA: query head h reads kv head h // (Hq/Hkv)).
+    The causal diagonal is aligned to the end of the kv axis (queries
+    are the last Sq positions).  Computed in float32, returned in
+    q.dtype; a query row that sees no key gives zeros, as the kernels
+    do."""
+    _, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    scale = scale if scale is not None else float(d) ** -0.5
+    kf = k.to(torch.float32).repeat_interleave(hq // hkv, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(hq // hkv, dim=1)
+    logits = torch.matmul(q.to(torch.float32) * scale, kf.transpose(-1, -2))
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        seen = qpos >= torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(~seen, float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        probs = torch.where(seen.any(-1)[:, None], probs, 0.0)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, vf).to(q.dtype)

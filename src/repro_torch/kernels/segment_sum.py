@@ -6,26 +6,37 @@ one-hot MXU product per segment tile × input block).  The H100 kernel
 float atomic per run end: it reads each (id, value) pair once, so it is
 bound by device-memory bytes; see the source for the design.
 
-:func:`segment_sum` launches it on CUDA tensors; ``ref.segment_sum`` is
-the plain version on the same contract, and ``ops.segment_sum``
-dispatches between them.
+:func:`segment_sum` launches it on CUDA tensors and runs the plain
+version ``ref.segment_sum`` on CPU tensors or with ``backend="ref"``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 __all__ = ["segment_sum"]
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Per-segment sums of ``values`` (..., N) float32 by ``segment_ids``
-    (..., N) int32 into (..., num_segments) float32, on the GPU.  Ids
-    outside [0, num_segments) are dropped.  Raises on anything the
-    kernel does not take — it never falls back to the plain version."""
+                num_segments: int, backend: str = "auto") -> torch.Tensor:
+    """Per-segment float32 sums of ``values`` (..., N) by ``segment_ids``
+    (..., N) into (..., num_segments), over any leading axes; ids
+    outside [0, num_segments) are dropped.  The plain version casts the
+    values to float32, as the reference does; the kernel takes float32
+    values and int32 ids (a narrowing cast could alias an out-of-range
+    id onto a real segment, so it raises instead)."""
+    if _build.resolve(backend, values) == "ref":
+        return ref.segment_sum(values.to(torch.float32), segment_ids,
+                               num_segments)
+    return _segment_sum_cuda(values, segment_ids, num_segments)
+
+
+def _segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """The CUDA kernel.  Raises on anything the kernel does not take —
+    it never falls back to the plain version."""
     if not (values.is_cuda and segment_ids.is_cuda):
         raise ValueError("segment_sum kernel needs CUDA tensors")
     if values.device != segment_ids.device:

@@ -205,12 +205,25 @@ def test_execute_query_triangle_matches_jax(strategy, grid):
     dict(strategy="mapside"), dict(strategy="shares_skew")],
     ids=["measure_skew", "overlap_chunks", "mapside", "shares_skew"])
 def test_later_slices_raise_not_implemented(option):
+    """Options of later slices raise ``NotImplementedError`` naming their
+    ROADMAP item.  Two options of this list are ported now:
+    ``measure_skew`` runs and adds ``max_bucket_load``, and
+    ``shares_skew`` raises the reference's ``ValueError`` pointing to
+    its own entry point, ``shares_skew_chain``."""
     q = T.ChainQuery.three_way()
     rels = T.chain_edge_inputs(q, EDGES, GRID, device="cpu")
     kw = dict(strategy="cascade", caps=CAPS)
     kw.update(option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
+    if option.get("measure_skew"):
+        _, stats, ovf = T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
+        assert not bool(ovf)
+        assert 0 < float(stats["max_bucket_load"]) <= float(stats["read"])
+    elif option.get("strategy") == "shares_skew":
+        with pytest.raises(ValueError, match="shares_skew_chain"):
+            T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
 
 
 def test_unknown_strategy_and_missing_aggregate_raise():

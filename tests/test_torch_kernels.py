@@ -1,5 +1,7 @@
 """The port's kernels: plain versions against the JAX kernels, CUDA
-kernels against the plain versions.
+kernels against the plain versions.  (The parity tests of
+``hash_histogram`` and attention live in ``test_torch_skew.py`` and
+``test_torch_attention.py``; their CUDA tests are here.)
 
 On the CPU the plain PyTorch versions (``repro_torch.kernels.ref``) are
 held to the JAX package's Pallas kernels run as its own tests run them
@@ -21,7 +23,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import fused_join as tfj  # noqa: E402
+from repro_torch.kernels import hash_partition as thp  # noqa: E402
 from repro_torch.kernels import segment_sum as tss  # noqa: E402
 
 I32_MAX = np.iinfo(np.int32).max
@@ -79,7 +83,7 @@ def test_segment_sum_integer_values_exact(J):
     rng = np.random.default_rng(1)
     ids = np.sort(rng.integers(0, 40, 500)).astype(np.int32)
     vals = rng.integers(0, 5, 500).astype(np.float32)
-    got = ops.segment_sum(torch.as_tensor(vals), torch.as_tensor(ids), 40)
+    got = tss.segment_sum(torch.as_tensor(vals), torch.as_tensor(ids), 40)
     want = J.segment_sum(J.jnp.asarray(vals), J.jnp.asarray(ids), 40,
                          interpret=True, seg_tile=128, block=256)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -87,7 +91,7 @@ def test_segment_sum_integer_values_exact(J):
 
 def test_segment_sum_out_of_range_dropped(J):
     ids = torch.tensor([-1, 0, 1, 5, 99], dtype=torch.int32)
-    got = ops.segment_sum(torch.ones(5), ids, 4)
+    got = tss.segment_sum(torch.ones(5), ids, 4)
     np.testing.assert_array_equal(got.numpy(), [1, 1, 0, 0])
     want = J.ref.segment_sum(J.jnp.ones(5), J.jnp.asarray(ids.numpy()), 4)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -153,19 +157,19 @@ def test_stable_key_order_and_partition_order_match_jax(J):
 
 def test_dispatch_policy_on_cpu_tensors():
     t = torch.zeros(4)
-    assert ops.resolve("auto", t) == "ref"
-    assert ops.resolve("ref", t) == "ref"
-    assert ops.resolve("kernel", t) == "kernel"
+    assert _build.resolve("auto", t) == "ref"
+    assert _build.resolve("ref", t) == "ref"
+    assert _build.resolve("kernel", t) == "kernel"
     with pytest.raises(ValueError, match="unknown backend"):
-        ops.resolve("pallas", t)
+        _build.resolve("pallas", t)
     before = dict(ops.LAUNCHES)
-    ops.segment_sum(t, torch.zeros(4, dtype=torch.int32), 2)
+    tss.segment_sum(t, torch.zeros(4, dtype=torch.int32), 2)
     tfj.probe_counts(torch.zeros(4, dtype=torch.int32),
                      torch.zeros(4, dtype=torch.int32))
     assert ops.LAUNCHES == before      # plain versions launch nothing
     # Asking for the kernel on a CPU tensor raises; it never falls back.
     with pytest.raises(ValueError, match="CUDA"):
-        ops.segment_sum(t, torch.zeros(4, dtype=torch.int32), 2,
+        tss.segment_sum(t, torch.zeros(4, dtype=torch.int32), 2,
                         backend="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         tfj.probe_counts(torch.zeros(4, dtype=torch.int32),
@@ -207,16 +211,16 @@ def test_segment_sum_kernel_matches_plain(cuda, kind, batch, n, num_segments):
     vals, ids = segment_case(n, batch, n, num_segments, kind)
     v, i = torch.as_tensor(vals, device=cuda), torch.as_tensor(ids, device=cuda)
     before = ops.LAUNCHES["segment_sum"]
-    got = ops.segment_sum(v, i, num_segments, backend="kernel")
+    got = tss.segment_sum(v, i, num_segments, backend="kernel")
     torch.cuda.synchronize()
     assert ops.LAUNCHES["segment_sum"] == before + 1
-    want = ops.segment_sum(v, i, num_segments, backend="ref")
+    want = tss.segment_sum(v, i, num_segments, backend="ref")
     # Float atomics add in another order than the plain scatter.
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     ints = torch.as_tensor(np.rint(vals * 3), device=cuda)
     np.testing.assert_array_equal(
-        ops.segment_sum(ints, i, num_segments).cpu().numpy(),
-        ops.segment_sum(ints, i, num_segments, backend="ref").cpu().numpy())
+        tss.segment_sum(ints, i, num_segments).cpu().numpy(),
+        tss.segment_sum(ints, i, num_segments, backend="ref").cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -245,8 +249,82 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tss.segment_sum(v.t(), torch.zeros(8, 2, dtype=torch.int32,
                                            device=cuda), 4)
     with pytest.raises(TypeError):      # int64 ids are not narrowed
-        ops.segment_sum(v, torch.zeros(2, 8, dtype=torch.int64,
+        tss.segment_sum(v, torch.zeros(2, 8, dtype=torch.int64,
                                        device=cuda), 4)
     with pytest.raises(TypeError):
         tfj.probe_counts(torch.zeros(4, device=cuda),
                          torch.zeros(4, device=cuda), backend="kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("batch,n,n_buckets,block", [
+    (1, 1, 1, 1024), (2, 100, 3, 1024), (3, 777, 130, 256),
+    (4, 5000, 4096, 1024), (16, 3000, 16, 1024)])
+def test_hash_histogram_kernel_matches_plain(cuda, dtype, batch, n,
+                                             n_buckets, block):
+    """Equal as integers, per-block layout included, for every salt; the
+    kernel's native uint32 hash equals the plain version's emulation."""
+    rng = np.random.default_rng(n + n_buckets)
+    hi = 1 << 31 if dtype == torch.int32 else 1 << 62
+    keys = torch.as_tensor(rng.integers(-hi, hi, (batch, n)),
+                           device=cuda).to(dtype)
+    valid = torch.as_tensor(rng.random((batch, n)) < 0.8, device=cuda)
+    for salt in range(4):
+        before = ops.LAUNCHES["hash_histogram"]
+        got = thp.hash_histogram(keys, valid, n_buckets, salt=salt,
+                                 block=block)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["hash_histogram"] == before + 1
+        want = thp.hash_histogram(keys, valid, n_buckets, salt=salt,
+                                  block=block, backend="ref")
+        assert got.shape == want.shape and torch.equal(got, want)
+        assert torch.equal(thp.bucket_counts(keys, valid, n_buckets,
+                                             salt=salt),
+                           thp.bucket_counts(keys, valid, n_buckets,
+                                             salt=salt, backend="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,block_q,block_kv", [
+    (1, 4, 4, 128, 128, 64, 128, 128),
+    (2, 8, 2, 64, 64, 64, 32, 32),
+    (1, 4, 1, 32, 32, 128, 128, 128),
+    (1, 8, 2, 1, 256, 64, 128, 128),
+    (1, 4, 2, 17, 40, 64, 16, 64),
+    (1, 4, 2, 40, 17, 128, 128, 128),     # causal rows that see no key
+    (1, 28, 4, 300, 300, 128, 128, 128)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, causal, b, hq,
+                                              hkv, sq, skv, d, block_q,
+                                              block_kv):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hkv, skv, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hkv, skv, d, generator=gen, device=cuda).to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                              block_kv=block_kv)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = tfa.flash_attention(q, k, v, causal=causal, backend="ref")
+    assert got.dtype == dtype and not got.float().isnan().any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    keys = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
+    valid = torch.ones(2, 8, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        thp.hash_histogram(keys.float(), valid, 4, backend="kernel")
+    with pytest.raises(ValueError, match="buckets"):
+        thp.hash_histogram(keys, valid, thp.MAX_BUCKETS + 1)
+    q = torch.zeros(1, 2, 4, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.half(), q.half(), q.half())

@@ -186,26 +186,6 @@ def test_join_batched_equals_vmapped_reference(impl):
 # Partition, compaction, group-by
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("seed", range(3))
-def test_partition_matches_jax(seed):
-    rng = np.random.default_rng(seed)
-    n_buckets = int(rng.integers(1, 6))
-    cols, valid = side(rng, 40, 48, 20, lead=(3,), p_valid=0.8)
-    bucket = rng.integers(0, n_buckets, (3, 48)).astype(np.int32)
-    jr, tr = both(cols, valid)
-    counts = [np.bincount(bucket[d][valid[d]], minlength=n_buckets).max()
-              for d in range(3)]
-    for cap in (1, int(max(counts)) - 1, int(max(counts)), 50):
-        cap = max(cap, 1)
-        jo, jf = jax.jit(jax.vmap(
-            lambda r, b: jl.partition(r, b, n_buckets, cap)))(
-                jr, jnp.asarray(bucket))
-        to, tf = tl.partition(tr, torch.as_tensor(bucket), n_buckets, cap)
-        assert to.valid.shape == (3, n_buckets, cap)
-        assert_same(jo, to)
-        assert_flag(jf, tf)
-
-
 def test_partition_ranks_matches_jax():
     rng = np.random.default_rng(3)
     partition_ranks = jax.jit(jl.partition_ranks, static_argnums=2)
@@ -286,3 +266,73 @@ def test_groupby_batched_equals_vmapped_reference():
     to, tf = tl.groupby_sum(tr, ("a", "d"), "p", 9)
     assert_same(jo, to)
     assert_flag(jf, tf)
+
+
+def shuffle_oracle(shape, axis, cols, valid, bucket, recv, local):
+    """The reference's shuffle, row by row in numpy: each device sends
+    its valid rows, in order, to slot (source, rank) of the device whose
+    ``axis`` coordinate is the row's bucket (ranks past ``recv`` are
+    dropped and flagged); a receiver's (K, recv) slots are read source
+    by source and, when ``local < K·recv``, compacted to ``local``."""
+    k, n_dev = shape[axis], int(np.prod(shape))
+    slots = [[[] for _ in range(k)] for _ in range(n_dev)]
+    overflow = False
+    for src in np.ndindex(*shape):
+        rank = [0] * k
+        for i in np.flatnonzero(valid[src]):
+            b = int(bucket[src][i])
+            if rank[b] >= recv:
+                overflow = True
+                continue
+            dst = np.ravel_multi_index(src[:axis] + (b,) + src[axis + 1:],
+                                       shape)
+            slots[dst][src[axis]].append((rank[b], src, i))
+            rank[b] += 1
+    compact = local is not None and local < k * recv
+    cap = local if compact else k * recv
+    out = {c: np.zeros((n_dev, cap), v.dtype) for c, v in cols.items()}
+    out_valid = np.zeros((n_dev, cap), bool)
+    for dst in range(n_dev):
+        rows = [(s * recv + r, src, i) for s in range(k)
+                for r, src, i in slots[dst][s]]
+        if compact:
+            overflow |= len(rows) > cap
+            rows = [(j, src, i) for j, (_, src, i) in enumerate(rows)][:cap]
+        for pos, src, i in rows:
+            out_valid[dst, pos] = True
+            for c, v in cols.items():
+                out[c][dst, pos] = v[src][i]
+    shaped = {c: v.reshape(*shape, cap) for c, v in out.items()}
+    return shaped, out_valid.reshape(*shape, cap), overflow
+
+
+@pytest.mark.parametrize("shape,axis,n,recv,local", [
+    ((4,), 0, 10, 10, None),           # lossless: the (K, recv) layout
+    ((4,), 0, 10, 2, None),            # a source's bucket overflows recv
+    ((2, 3), 1, 10, 10, 5),            # compacted; a destination overflows
+    ((2, 3), 1, 12, 2, 4),             # both slots and destinations overflow
+    ((2, 3), 0, 12, 20, 24),           # compacted, no overflow
+    ((3, 1, 2), 2, 7, 7, 100),         # local >= K·recv: no compaction
+    ((1, 4), 1, 16, 16, 40),
+    ((2, 2), 0, 0, 2, 3)])             # empty shards
+def test_shuffle_by_bucket_matches_oracle(shape, axis, n, recv, local):
+    """The port's shuffle scatters straight into the receive shards; it
+    equals the reference's partition → all-to-all → flatten → compact,
+    done row by row, as full arrays (row order, padding, overflow)."""
+    from repro_torch.core import shuffle as tsh
+    rng = np.random.default_rng(n * 7 + recv + axis)
+    cols = {"a": rng.integers(-5, 5, (*shape, n)).astype(np.int32),
+            "p": rng.normal(size=(*shape, n)).astype(np.float32)}
+    valid = rng.random((*shape, n)) < 0.7
+    bucket = rng.integers(0, shape[axis], (*shape, n)).astype(np.int32)
+    want, want_valid, want_ovf = shuffle_oracle(shape, axis, cols, valid,
+                                                bucket, recv, local)
+    to, tf, tn = tsh.shuffle_by_bucket(
+        tsh.SimGrid(shape), interop.relation_from_numpy(cols, valid, "cpu"),
+        torch.as_tensor(bucket), axis, recv, local)
+    got, got_valid = interop.relation_to_numpy(to)
+    np.testing.assert_array_equal(got_valid, want_valid)
+    for c in cols:
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+    assert bool(tf) == want_ovf
+    np.testing.assert_array_equal(tn.numpy(), valid.sum(-1))
