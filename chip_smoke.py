@@ -12,16 +12,23 @@ Phases, each failing the run on any error:
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and the build seconds.
+   source, all started together), the build seconds, each kernel's
+   ``ptxas`` registers and spills, and the count of ``HGMMA`` (wgmma)
+   instructions in the built attention library, which must be nonzero.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: the max abs difference, the kernel's
    time, the plain version's, one PyTorch library call's for the same
    function, and the least time the card could take (bytes moved at
    3.35 TB/s; operations at 67 TFLOP/s in float32 outside the tensor
    cores, 989 TFLOP/s in bfloat16 — the H100 SXM data sheet).
-   ``flash_attention`` runs at qwen2-7b's attention widths (28 query
-   heads, 4 kv heads, head dim 128), prefill and decode over 4,096
-   positions, in bfloat16 and float32.
+   ``segment_sum`` adds a sorted case with non-integer values that must
+   give the same bits on two launches.  ``flash_attention`` runs at
+   qwen2-7b's attention widths (28 query heads, 4 kv heads, head dim
+   128) over 4,096 positions: bfloat16 prefill, a ragged chunk (1,000
+   queries after 2,000 cached keys) and head dim 64 on the tensor
+   cores, decode in bfloat16 and float32 split over the kv axis, and
+   float32 prefill on the CUDA cores; each case logs the path
+   ``_plan`` chose.
 3. The main path at full size: R-MAT ``amazon`` at ``--scale`` (edge
    factor 3, a = 0.50), planned with ``chain_stats_exact`` and
    ``plan_chain(k=16)``, sized by ``default_chain_caps``, and run by
@@ -76,6 +83,8 @@ K = 16
 # qwen2-7b's attention (src/repro/configs/qwen2_7b.py): 28 query heads,
 # 4 kv heads, head dim 128; prefill and decode over 4,096 positions.
 ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_LEN = 28, 4, 128, 4096
+# A ragged chunked prefill: 1,000 new queries after 2,000 cached keys.
+ATTN_CHUNK, ATTN_CHUNK_KV = 1000, 3000
 # The skew workload: Zipf(1.0) endpoints, the same list for all three
 # relations, k = 256 reducers.
 SKEW_NODES, SKEW_EDGES, SKEW_ALPHA, SKEW_K = 131072, 8192, 1.0, 256
@@ -145,6 +154,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of the kernels one ``fn()`` launches: their summed
+    time over ``iters`` calls under ``torch.profiler``, per call.  Where
+    it is well below ``time_ms``, the host's launches, not the card, set
+    the time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / iters / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -382,25 +413,33 @@ def segment_sum_phase(w: Workload, gen, iters: int, dev) -> dict:
                   math.ceil(len(w.a3_keys) / batch), False),
         # The same shape with the rows shuffled and non-integer values.
         "shuffled": (caps.join, caps.out, math.ceil(j3 / batch),
-                     math.ceil(len(w.a3_keys) / batch), True),
+                     math.ceil(len(w.a3_keys) / batch), "shuffled"),
+        # Sorted, with non-integer values: the same bits on every launch.
+        "sorted_float": (caps.join, caps.out, math.ceil(j3 / batch),
+                         math.ceil(len(w.a3_keys) / batch), "float"),
     }
     results = {}
-    for case, (n, s, n_live, n_groups, shuffle) in cases.items():
+    for case, (n, s, n_live, n_groups, kind) in cases.items():
         vals, ids = _sorted_ids(gen, batch, n, n_live, n_groups, s, dev)
-        if shuffle:
+        if kind:
+            noise = torch.randn(batch, n, generator=gen, device=dev)
+            vals = torch.where(vals > 0, noise, 0.0)
+        if kind == "shuffled":
             perm = torch.argsort(torch.rand(batch, n, generator=gen,
                                             device=dev), dim=-1)
             ids = ids.gather(-1, perm).contiguous()
-            vals = torch.randn(batch, n, generator=gen, device=dev)
             vals = vals.gather(-1, perm).contiguous()
         got = segment_sum(vals, ids, s)
         want = ref.segment_sum(vals, ids, s)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        if shuffle:       # float atomics add in another order: 1e-5
+        if kind:          # float sums in another order than the plain
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         else:             # integer-valued sums below 2^24: exact
             check(err == 0.0, f"segment_sum {case}: max abs err {err}")
+        if kind == "float":   # one addend a segment: the same bits again
+            check(torch.equal(got, segment_sum(vals, ids, s)),
+                  f"segment_sum {case}: two launches differ")
         # The library yardstick: one index_add_ into a flat buffer with
         # a sink slot for the dropped ids (index built outside the timing).
         flat = torch.where((ids >= 0) & (ids < s),
@@ -539,11 +578,30 @@ def hash_histogram_phase(w: Workload, gen, iters: int, dev) -> dict:
 
 
 def attention_shapes():
-    """(case, q shape, kv shape) at qwen2-7b's attention widths."""
+    """(case, q shape, kv shape) of the attention entry point's run at
+    qwen2-7b's attention widths: prefill and decode."""
     q_pre = (1, ATTN_HEADS, ATTN_LEN, ATTN_DIM)
     kv = (1, ATTN_KV_HEADS, ATTN_LEN, ATTN_DIM)
     return [("prefill", q_pre, kv),
             ("decode", (1, ATTN_HEADS, 1, ATTN_DIM), kv)]
+
+
+def attention_cases():
+    """(label, q shape, kv shape, dtype) of the kernel phase, every path
+    of ``_plan`` among them: bf16 prefill, a ragged chunk and D = 64 on
+    the tensor cores ("wgmma"), decode in both dtypes split over the kv
+    axis ("split"), float32 prefill on the CUDA cores ("simt")."""
+    h, hkv, d, n = ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_LEN
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        ("prefill_bfloat16", (1, h, n, d), (1, hkv, n, d), bf16),
+        ("chunk_bfloat16", (1, h, ATTN_CHUNK, d), (1, hkv, ATTN_CHUNK_KV, d),
+         bf16),
+        ("prefill_d64_bfloat16", (1, h, n, 64), (1, hkv, n, 64), bf16),
+        ("decode_bfloat16", (1, h, 1, d), (1, hkv, n, d), bf16),
+        ("prefill_float32", (1, h, n, d), (1, hkv, n, d), f32),
+        ("decode_float32", (1, h, 1, d), (1, hkv, n, d), f32),
+    ]
 
 
 def attention_inputs(gen, dev, q_shape, kv_shape, dtype):
@@ -551,47 +609,72 @@ def attention_inputs(gen, dev, q_shape, kv_shape, dtype):
             for shape in (q_shape, kv_shape, kv_shape)]
 
 
+def hgmma_count(path: Path) -> int:
+    """``HGMMA`` (wgmma) instructions in a built library's SASS."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300, check=True)
+    return sum("HGMMA" in line for line in out.stdout.splitlines())
+
+
 def flash_attention_phase(gen, iters: int, dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import _plan, flash_attention
 
     # The plain version's float32 products run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     results = {}
-    for dtype, tol, rate in ((torch.bfloat16, 2e-2, BF16_OPS_PER_S),
-                             (torch.float32, 2e-5, FP32_OPS_PER_S)):
-        for case, q_shape, kv_shape in attention_shapes():
-            q, k, v = attention_inputs(gen, dev, q_shape, kv_shape, dtype)
-            got = flash_attention(q, k, v, causal=True)
-            want = ref.attention(q, k, v, causal=True)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                       atol=tol)
-            err = float((got.float() - want.float()).abs().max())
-            ms = time_ms(lambda: flash_attention(q, k, v, causal=True),
-                         iters)
-            plain_ms = time_ms(lambda: ref.attention(q, k, v, causal=True),
-                               iters)
-            sq, skv = q_shape[2], kv_shape[2]
-            # End-aligned causal: with Sq == Skv this is SDPA's causal
-            # mask; a single decode query sees every key.
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=sq > 1, enable_gqa=True), iters)
-            pairs = sum(min(skv, i + skv - sq + 1) for i in range(sq))
-            n_ops = 4 * q_shape[0] * q_shape[1] * ATTN_DIM * pairs
-            n_bytes = q.element_size() * (2 * q.numel() + k.numel()
-                                          + v.numel())
-            b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
-            label = f"{case}_{str(dtype).split('.')[-1]}"
-            results[label] = dict(
-                shape=f"q{q_shape} kv{kv_shape} causal {dtype}",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by,
-                library="torch.nn.functional.scaled_dot_product_attention")
-            log(f"kernel flash_attention {label}: {results[label]}")
-            del q, k, v, got, want
-            torch.cuda.empty_cache()
+    for label, q_shape, kv_shape, dtype in attention_cases():
+        tol, rate = ((2e-2, BF16_OPS_PER_S) if dtype == torch.bfloat16
+                     else (2e-5, FP32_OPS_PER_S))
+        b, h, sq, d = q_shape
+        hkv, skv = kv_shape[1], kv_shape[2]
+        plan = _plan(sq, skv, h, hkv, d, dtype, batch=b)
+        q, k, v = attention_inputs(gen, dev, q_shape, kv_shape, dtype)
+        got = flash_attention(q, k, v, causal=True)
+        want = ref.attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        err = float((got.float() - want.float()).abs().max())
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True), iters)
+        plain_ms = time_ms(lambda: ref.attention(q, k, v, causal=True),
+                           iters)
+        # The library yardstick, SDPA, on the same function: its causal
+        # mask is aligned to the top left, so a ragged chunk gets the
+        # end-aligned mask as a tensor (built outside the timing); with
+        # Sq == Skv it is SDPA's own causal mask, and a single decode
+        # query sees every key.
+        mask = None
+        if 1 < sq != skv:
+            mask = (torch.arange(sq, device=dev)[:, None] + (skv - sq)
+                    >= torch.arange(skv, device=dev)[None, :])
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=sq == skv > 1,
+                enable_gqa=True)
+        lib_ms = time_ms(library, iters)
+        dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
+                           iters)
+        lib_dev_ms = device_ms(library, iters)
+        pairs = sum(max(0, min(skv, i + skv - sq + 1)) for i in range(sq))
+        n_ops = 4 * b * h * d * pairs
+        n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
+        results[label] = dict(
+            shape=f"q{q_shape} kv{kv_shape} causal {dtype}",
+            path=plan.path, splits=plan.splits, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
+            library="torch.nn.functional.scaled_dot_product_attention")
+        log(f"kernel flash_attention {label}: {results[label]}")
+        del q, k, v, got, want, mask
+        torch.cuda.empty_cache()
+    check(results["prefill_bfloat16"]["path"] == "wgmma"
+          and results["decode_bfloat16"]["path"] == "split",
+          "flash_attention: bf16 prefill or decode off its path")
     return results
 
 
@@ -931,6 +1014,9 @@ def main(argv=None) -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    n_hgmma = hgmma_count(paths["flash_attention"])
+    log(f"sass flash_attention: {n_hgmma} HGMMA instructions")
+    check(n_hgmma > 0, "flash_attention: no HGMMA in the built library")
 
     w = make_workload(args.scale, args.seed)
     dev = torch.device("cuda")

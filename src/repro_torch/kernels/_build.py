@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first CUDA use,
 ``nvcc`` compiles it for Hopper (``sm_90a``) into its own shared
 library under ``build/kernels/`` at the repository root (override with
-``REPRO_TORCH_BUILD_DIR``), named by a hash of the source and flags so
-an edited source rebuilds; the library is then loaded with ``ctypes``.
+``REPRO_TORCH_BUILD_DIR``), named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags so an edited source or header
+rebuilds; the library is then loaded with ``ctypes``.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Nothing here touches CUDA at import time, so the package imports on a
@@ -24,10 +25,13 @@ from typing import Dict, Iterable
 _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _HIST = (_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P)
 _ATTN = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _LL, _LL, _P)
+_ATTN_WGMMA = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _P)
+_ATTN_SPLIT = (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL,
+               _LL, _LL, _P)
 #: One library per ``csrc/<name>.cu``, and its C entry points:
 #: (pointers..., sizes..., stream) -> ``cudaGetLastError()`` as int.
 SIGNATURES = {
-    "segment_sum": {"segment_sum_f32": (_P, _P, _P, _LL, _LL, _LL, _P)},
+    "segment_sum": {"segment_sum_f32": (_P, _P, _P, _P, _LL, _LL, _LL, _P)},
     "probe_counts": {
         "probe_counts_i32": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
         "probe_counts_i64": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
@@ -35,7 +39,9 @@ SIGNATURES = {
     "hash_histogram": {"hash_histogram_i32": _HIST,
                        "hash_histogram_i64": _HIST},
     "flash_attention": {"flash_attention_f32": _ATTN,
-                        "flash_attention_bf16": _ATTN},
+                        "flash_attention_wgmma_bf16": _ATTN_WGMMA,
+                        "flash_attention_split_f32": _ATTN_SPLIT,
+                        "flash_attention_split_bf16": _ATTN_SPLIT},
 }
 
 SOURCES = tuple(SIGNATURES)
@@ -81,10 +87,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every ``csrc/*.cuh`` header (any source may include them) and the
+    flags, so an edited source or header rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

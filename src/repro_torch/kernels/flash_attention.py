@@ -1,15 +1,28 @@
 """Blocked online-softmax (flash) attention with GQA.
 
 Port of ``src/repro/kernels/flash_attention.py``.  On CUDA tensors
-:func:`flash_attention` launches the kernel of
-``csrc/flash_attention.cu`` (port of the TPU kernel
-``flash_attention``); on CPU tensors, or with ``backend="ref"``, it runs
-the plain version ``ref.attention``.  Both align the causal diagonal to
-the end of the kv axis, compute in float32, return ``q.dtype``, and
-give zeros for a query row that sees no key.
+:func:`flash_attention` launches one of the kernels of
+``csrc/flash_attention.cu`` (port of the TPU kernel ``flash_attention``),
+as :func:`_plan` picks it:
+
+  * ``"wgmma"`` — bfloat16 prefill on the tensor cores, fed by TMA;
+  * ``"split"`` — short query blocks (Sq <= ``SPLIT_MAX_SQ``: decode and
+    short chunks) in both dtypes, the kv axis split over CTAs and the
+    splits merged by a second kernel;
+  * ``"simt"`` — float32 prefill on the CUDA cores (wgmma has no
+    full-float32 mode).
+
+With no key (Skv = 0) every row sees nothing: zeros, and no launch.
+
+On CPU tensors, or with ``backend="ref"``, it runs the plain version
+``ref.attention``.  All align the causal diagonal to the end of the kv
+axis, compute in float32, return ``q.dtype``, and give zeros for a
+query row that sees no key.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -17,16 +30,49 @@ from . import _build, ref
 
 __all__ = ["flash_attention"]
 
-#: Head widths and input dtypes the kernel is compiled for.
+#: Head widths and input dtypes the kernels are compiled for.
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-#: The kernel's kv tile, whatever ``block_kv`` asks for.
+#: The "simt" kernel's kv tile, whatever ``block_kv`` asks for.
 KV_TILE = 64
+#: Query blocks up to this length take the split path.
+SPLIT_MAX_SQ = 16
+#: The split kernel's key tile and query rows a CTA (csrc: split::kKeys,
+#: split::kRows); splits are whole key tiles.
+SPLIT_KEYS = 32
+SPLIT_ROWS = 64
+#: Streaming multiprocessors of the H100; the split path aims at two
+#: CTAs on each at least.
+SM_COUNT = 132
+#: TMA reads each tensor from a 16-byte aligned address.
+TMA_ALIGN = 16
+
+
+class Plan(NamedTuple):
+    path: str       # "wgmma", "split" or "simt"
+    splits: int     # kv splits (1 off the split path)
+    chunk: int      # keys a split (Skv off the split path)
+
+
+def _plan(sq: int, skv: int, hq: int, hkv: int, d: int,
+          dtype: torch.dtype, batch: int = 1) -> Plan:
+    """The kernel for one call with Skv >= 1.  Short query blocks split
+    the kv axis into whole key tiles, as many as give every SM two CTAs
+    where Skv allows it."""
+    del d                               # both head dims take every path
+    if sq <= SPLIT_MAX_SQ:
+        row_blocks = -(-(hq // hkv) * sq // SPLIT_ROWS)
+        target = -(-2 * SM_COUNT // (batch * hkv * row_blocks))
+        chunk = SPLIT_KEYS * max(1, skv // (SPLIT_KEYS * target))
+        return Plan("split", -(-skv // chunk), chunk)
+    if dtype == torch.bfloat16:
+        return Plan("wgmma", 1, skv)
+    return Plan("simt", 1, skv)
 
 
 def _query_tile(sq: int, block_q: int) -> int:
-    """The kernel's query tile: 64 rows where ``block_q`` and the next
-    power of two of Sq both reach 64, else 16 (decode, short prompts)."""
+    """The "simt" kernel's query tile: 64 rows where ``block_q`` and the
+    next power of two of Sq both reach 64, else 16."""
     need = min(block_q, 1 << max(0, sq - 1).bit_length())
     return 64 if need >= 64 else 16
 
@@ -34,8 +80,8 @@ def _query_tile(sq: int, block_q: int) -> int:
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool, scale: float, block_q: int,
                           block_kv: int) -> torch.Tensor:
-    """The CUDA kernel.  Raises on anything the kernel does not take —
-    it never falls back to the plain version."""
+    """The CUDA kernels.  Raises on anything they do not take — it never
+    falls back to the plain version."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention kernel needs CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -45,23 +91,42 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"q, k, v of one dtype, got {q.dtype} / {k.dtype} / "
                         f"{v.dtype}")
     b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dim in "
                          f"{HEAD_DIMS}, got {d}")
-    if b * hq > 65535:
-        raise ValueError(f"flash_attention kernel takes at most 65535 "
-                         f"(batch, head) rows, got {b * hq}")
+    if q.numel() == 0 or skv == 0:
+        return torch.zeros_like(q)      # no query or no key: no launch
+    plan = _plan(sq, skv, hq, hkv, d, q.dtype, batch=b)
+    grid_rows = {"simt": b * hq, "split": b * hkv}.get(plan.path, 0)
+    if grid_rows > 65535:
+        raise ValueError(f"flash_attention {plan.path} kernel takes at most "
+                         f"65535 (batch, head) rows, got {grid_rows}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"flash_attention kernel needs {name} at a "
+                             f"{TMA_ALIGN}-byte aligned address")
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out                      # nothing to attend: no launch
-    bq = _query_tile(sq, block_q)
     lib = _build.library("flash_attention")
-    fn = lib.flash_attention_f32 if q.dtype == torch.float32 \
-        else lib.flash_attention_bf16
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            k.shape[1], sq, k.shape[2], d, scale, int(causal), bq, KV_TILE,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    tag = "f32" if q.dtype == torch.float32 else "bf16"
+    if plan.path == "wgmma":
+        rc = lib.flash_attention_wgmma_bf16(*ptrs, b, hq, hkv, sq, skv, d,
+                                            scale, int(causal), stream)
+    elif plan.path == "split":
+        # One workspace: acc (splits, rows, D), then (m, l) (splits, rows).
+        rows = plan.splits * b * hq * sq
+        ws = torch.empty(rows * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        rc = getattr(lib, f"flash_attention_split_{tag}")(
+            *ptrs, ws.data_ptr(), ws.data_ptr() + rows * d * 4, b, hq, hkv,
+            sq, skv, d, scale, int(causal), plan.splits, plan.chunk, stream)
+    else:
+        rc = lib.flash_attention_f32(*ptrs, b, hq, hkv, sq, skv, d, scale,
+                                     int(causal), _query_tile(sq, block_q),
+                                     KV_TILE, stream)
     _build.check(lib, "flash_attention", rc)
     _build.LAUNCHES["flash_attention"] += 1
     return out
@@ -72,9 +137,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     backend: str = "auto", block_q: int = 128,
                     block_kv: int = 128) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) with Hq % Hkv == 0.
-    Returns (B, Hq, Sq, D) in q.dtype.  ``block_q`` caps the kernel's
-    query tile (64 rows, or 16 below 64); ``block_kv`` is taken for the
-    reference's signature and the kv tile is always ``KV_TILE`` rows."""
+    Returns (B, Hq, Sq, D) in q.dtype.  ``block_q`` caps the "simt"
+    kernel's query tile (64 rows, or 16 below 64); the "wgmma" and
+    "split" tiles are fixed, and ``block_kv`` is taken for the
+    reference's signature."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: need (B, H, S, D) and k == v")

@@ -2,9 +2,13 @@
 
 Port of ``src/repro/kernels/segment_sum.py::segment_sum`` (TPU: a
 one-hot MXU product per segment tile × input block).  The H100 kernel
-(``csrc/segment_sum.cu``) is a block-wide segmented scan with one
-float atomic per run end: it reads each (id, value) pair once, so it is
-bound by device-memory bytes; see the source for the design.
+(``csrc/segment_sum.cu``) runs two passes: per tile of ``TILE`` rows a
+segmented scan that adds each run inside the tile once and leaves the
+tile's first and last run in a carry buffer, then a fix-up that sums
+the runs crossing tiles in tile order.  On sorted ids every segment
+gets one addend, so its sums are bit-identical from launch to launch.
+It reads each (id, value) pair once, so it is bound by device-memory
+bytes; see the source for the design.
 
 :func:`segment_sum` launches it on CUDA tensors and runs the plain
 version ``ref.segment_sum`` on CPU tensors or with ``backend="ref"``.
@@ -17,6 +21,11 @@ import torch
 from . import _build, ref
 
 __all__ = ["segment_sum"]
+
+#: Rows per tile of the kernel's first pass, and the int32 words of one
+#: tile's carry record (head id, head sum, tail id, tail sum, flag, pad).
+TILE = 2048
+CARRY_WORDS = 8
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -61,10 +70,13 @@ def _segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
                       device=values.device)
     if batch == 0 or n == 0:
         return out                      # nothing to add: no launch
+    carries = torch.empty(batch * -(-n // TILE) * CARRY_WORDS,
+                          dtype=torch.int32, device=values.device)
     lib = _build.library("segment_sum")
     rc = lib.segment_sum_f32(
-        values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), batch, n,
-        num_segments, torch.cuda.current_stream(values.device).cuda_stream)
+        values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
+        carries.data_ptr(), batch, n, num_segments,
+        torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(lib, "segment_sum", rc)
     _build.LAUNCHES["segment_sum"] += 1
     return out

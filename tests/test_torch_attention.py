@@ -8,7 +8,10 @@ single-token decode, padded shapes) × causal × dtype, at the tolerances
 that test holds the Pallas kernel to: 2e-5 in float32, 2e-2 in
 bfloat16.  A causal query row that sees no key (Sq > Skv) gives zeros,
 as the Pallas kernel does in interpret mode — ``ref.attention`` gives
-NaN there, so that case is held to the kernel.
+NaN there, so that case is held to the kernel.  ``_plan``, which picks
+the CUDA kernel ("wgmma", "split" or "simt") from the shapes and dtype
+alone, is checked here too; the kernels themselves run only on a GPU
+(``tests/test_torch_kernels.py``).
 """
 
 import numpy as np
@@ -93,3 +96,34 @@ def test_gqa_shape_checks():
         tfa.flash_attention(q, kv, kv)
     with pytest.raises(ValueError, match="multiple"):
         ref.attention(q, kv, kv)
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,dtype,path", [
+    (4096, 4096, 28, 4, 128, torch.bfloat16, "wgmma"),    # prefill
+    (1000, 3000, 28, 4, 128, torch.bfloat16, "wgmma"),    # chunked prefill
+    (200, 1000, 4, 2, 64, torch.bfloat16, "wgmma"),
+    (17, 40, 4, 2, 64, torch.bfloat16, "wgmma"),
+    (4096, 4096, 28, 4, 128, torch.float32, "simt"),
+    (17, 40, 4, 2, 64, torch.float32, "simt"),
+    (1, 4096, 28, 4, 128, torch.bfloat16, "split"),       # decode
+    (1, 4096, 28, 4, 128, torch.float32, "split"),
+    (16, 4096, 28, 4, 128, torch.bfloat16, "split"),      # short chunk
+    (4, 300, 8, 2, 128, torch.float32, "split"),
+    (1, 1, 8, 8, 64, torch.bfloat16, "split")])
+def test_plan_picks_the_path(sq, skv, hq, hkv, d, dtype, path):
+    plan = tfa._plan(sq, skv, hq, hkv, d, dtype)
+    assert plan.path == path
+    if path == "split":     # whole key tiles that cover the kv axis once
+        assert plan.chunk % tfa.SPLIT_KEYS == 0
+        assert (plan.splits - 1) * plan.chunk < skv <= plan.splits * plan.chunk
+    else:
+        assert plan.splits == 1
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_plan_gives_every_sm_two_ctas_at_decode(batch):
+    """qwen2-7b decode over 4,096 keys: one CTA a (split, kv head) holds
+    all 7 query heads of the group, and there are at least 2 × 132."""
+    plan = tfa._plan(1, 4096, 28, 4, 128, torch.bfloat16, batch=batch)
+    assert plan.path == "split"
+    assert plan.splits * batch * 4 >= 2 * tfa.SM_COUNT

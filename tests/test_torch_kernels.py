@@ -192,6 +192,33 @@ def test_build_paths_and_missing_compiler(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("*.so"))
 
 
+def test_library_path_follows_sources_and_headers(monkeypatch, tmp_path):
+    """An edited ``csrc/*.cuh`` header renames every library, so a stale
+    build is never loaded; an edited source renames only its own."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    assert list(csrc.glob("*.cuh")), "the kernels share a header"
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert before == {name: _build.library_path(name)
+                      for name in _build.SOURCES}
+    header = sorted(csrc.glob("*.cuh"))[0]
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    (csrc / "new_header.cuh").write_text("#pragma once\n")
+    added = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(added[n] != after[n] for n in _build.SOURCES)
+    src = csrc / "segment_sum.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    edited = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert edited["segment_sum"] != added["segment_sum"]
+    assert all(edited[n] == added[n] for n in _build.SOURCES
+               if n != "segment_sum")
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against the plain versions (GPU only)
 # ---------------------------------------------------------------------------
@@ -221,6 +248,45 @@ def test_segment_sum_kernel_matches_plain(cuda, kind, batch, n, num_segments):
     np.testing.assert_array_equal(
         tss.segment_sum(ints, i, num_segments).cpu().numpy(),
         tss.segment_sum(ints, i, num_segments, backend="ref").cpu().numpy())
+
+
+def long_segments_case(seed, batch, n, num_segments):
+    """Sorted ids whose segments span several kernel tiles, end exactly
+    on tile edges, or are one row long, with non-integer values; the
+    padded tail takes id ``num_segments`` (dropped)."""
+    rng = np.random.default_rng(seed)
+    tile = tss.TILE
+    lengths = [3 * tile, tile, 1, tile - 1, 1, 2 * tile + 5, 7]
+    ids = np.concatenate([np.full(m, i) for i, m in enumerate(lengths)])
+    rest = n - len(ids) - n // 8
+    ids = np.concatenate([ids, len(lengths) + np.sort(
+        rng.integers(0, num_segments - len(lengths), rest))])
+    ids = np.concatenate([ids, np.full(n - len(ids), num_segments)])
+    ids = np.broadcast_to(ids, (batch, n)).astype(np.int32)
+    vals = rng.normal(size=(batch, n)).astype(np.float32)
+    return vals, np.ascontiguousarray(ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12 * 2048, 12 * 2048 + 3])
+def test_segment_sum_kernel_deterministic_across_tiles(cuda, n):
+    """Sorted ids, segments across tile edges, non-integer values: two
+    launches are bit-identical (one addend a segment), and within 1e-5
+    of the plain version relative to each segment's sum of |values|:
+    the two add up to 6,144 float32 values in different orders, which
+    moves a sum by up to about n · 2^-24 of that scale.  n % 4 == 3
+    takes the scalar loads."""
+    vals, ids = long_segments_case(n, 3, n, 500)
+    v, i = torch.as_tensor(vals, device=cuda), torch.as_tensor(ids, device=cuda)
+    before = ops.LAUNCHES["segment_sum"]
+    first = tss.segment_sum(v, i, 500)
+    second = tss.segment_sum(v, i, 500)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_sum"] == before + 2
+    assert torch.equal(first, second)
+    want = tss.segment_sum(v, i, 500, backend="ref")
+    scale = tss.segment_sum(v.abs(), i, 500, backend="ref")
+    assert bool(((first - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
 @pytest.mark.cuda
@@ -296,15 +362,17 @@ def test_hash_histogram_kernel_matches_plain(cuda, dtype, batch, n,
     (1, 8, 2, 1, 256, 64, 128, 128),
     (1, 4, 2, 17, 40, 64, 16, 64),
     (1, 4, 2, 40, 17, 128, 128, 128),     # causal rows that see no key
-    (1, 28, 4, 300, 300, 128, 128, 128)])
+    (1, 28, 4, 300, 300, 128, 128, 128),
+    (1, 28, 4, 1024, 1024, 128, 128, 128),   # prefill
+    (1, 4, 2, 200, 1000, 64, 128, 128),      # chunked prefill
+    (2, 28, 4, 1, 4096, 128, 128, 128),      # decode
+    (1, 8, 8, 1, 1, 64, 128, 128),           # decode, one key
+    (1, 8, 2, 4, 300, 128, 128, 128)])       # short chunk
 def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, causal, b, hq,
                                               hkv, sq, skv, d, block_q,
                                               block_kv):
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=cuda).manual_seed(sq + skv)
-    q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).to(dtype)
-    k = torch.randn(b, hkv, skv, d, generator=gen, device=cuda).to(dtype)
-    v = torch.randn(b, hkv, skv, d, generator=gen, device=cuda).to(dtype)
+    q, k, v = attention_case(cuda, dtype, b, hq, hkv, sq, skv, d)
     before = ops.LAUNCHES["flash_attention"]
     got = tfa.flash_attention(q, k, v, causal=causal, block_q=block_q,
                               block_kv=block_kv)
@@ -313,6 +381,42 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, causal, b, hq,
     want = tfa.flash_attention(q, k, v, causal=causal, backend="ref")
     assert got.dtype == dtype and not got.float().isnan().any()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def attention_case(dev, dtype, b, hq, hkv, sq, skv, d):
+    gen = torch.Generator(device=dev).manual_seed(sq + skv)
+    return [torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+            for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,path", [
+    (torch.bfloat16, (1, 28, 4, 1024, 1024, 128), "wgmma"),
+    (torch.bfloat16, (1, 4, 2, 200, 1000, 64), "wgmma"),
+    (torch.bfloat16, (2, 28, 4, 1, 4096, 128), "split"),
+    (torch.float32, (1, 8, 2, 4, 300, 64), "split"),
+    (torch.float32, (1, 4, 2, 300, 300, 128), "simt")])
+def test_flash_attention_kernel_deterministic(cuda, dtype, shape, path):
+    """Each path gives the same bits on two calls (no atomics; the splits
+    merge in a fixed order)."""
+    b, hq, hkv, sq, skv, d = shape
+    assert tfa._plan(sq, skv, hq, hkv, d, dtype, batch=b).path == path
+    q, k, v = attention_case(cuda, dtype, *shape)
+    first = tfa.flash_attention(q, k, v, causal=True)
+    second = tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_misaligned_tensor(cuda):
+    """TMA reads from 16-byte aligned addresses: the wrapper raises, it
+    does not copy."""
+    q = torch.zeros(1 * 2 * 32 * 64 + 1, device=cuda,
+                    dtype=torch.bfloat16)[1:].view(1, 2, 32, 64)
+    k = torch.zeros(1, 2, 32, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention(q, k, k)
 
 
 @pytest.mark.cuda
