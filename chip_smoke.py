@@ -3,6 +3,7 @@
 their plain versions.
 
     python3 chip_smoke.py [--scale 14] [--seed 0] [--iters 10]
+                          [--profile DIR]
 
 Run from the root of a checkout (the script puts ``src/`` on the path).
 It needs one CUDA device and ``nvcc``; with no GPU, or without the
@@ -22,7 +23,14 @@ Phases, each failing the run on any error:
    3.35 TB/s; operations at 67 TFLOP/s in float32 outside the tensor
    cores, 989 TFLOP/s in bfloat16 — the H100 SXM data sheet).
    ``segment_sum`` adds a sorted case with non-integer values that must
-   give the same bits on two launches.  ``flash_attention`` runs at
+   give the same bits on two launches.  ``probe_counts`` adds hop 2's
+   queries shuffled within each row (windows too wide for shared
+   memory) and 64-bit keys above 2^32, each case with its device time
+   (``torch.profiler``).  ``hash_histogram`` times the per-block counts
+   and, at 2,3JA's hop 2, 1,3J's placement and skew detection,
+   ``bucket_counts`` (the totals both callers read, one launch; hop 2
+   is the kernels line's headline), each with its device time.
+   ``flash_attention`` runs at
    qwen2-7b's attention widths (28 query heads, 4 kv heads, head dim
    128) over 4,096 positions: bfloat16 prefill, a ragged chunk (1,000
    queries after 2,000 cached keys) and head dim 64 on the tensor
@@ -469,25 +477,37 @@ def probe_counts_phase(w: Workload, gen, iters: int, dev) -> dict:
     st, caps = w.stats, w.caps
     batch = math.prod(GRID)
     r, j1, a1 = st.sizes[0], st.prefix_joins[0], st.prefix_aggs[0]
+    join2 = (caps.mid, caps.local, math.ceil(j1 / batch),
+             math.ceil(r / GRID[1]))
+    hop2 = (caps.agg, caps.agg, math.ceil(a1 / batch), math.ceil(r / batch))
+    # (shape, key dtype, queries shuffled within each row)
     cases = {
         # 1,3J second join: the (R ⋈ S) shard probes the placed T shard.
-        "one_round_join2": (caps.mid, caps.local, math.ceil(j1 / batch),
-                            math.ceil(r / GRID[1])),
+        "one_round_join2": (join2, torch.int32, False),
         # 2,3JA hop 2: the aggregated prefix probes T, both at agg.
-        "cascade_hop2": (caps.agg, caps.agg, math.ceil(a1 / batch),
-                         math.ceil(r / batch)),
+        "cascade_hop2": (hop2, torch.int32, False),
+        # hop 2's queries in random order: every tile's window is most
+        # of the row, searched in device memory.
+        "unsorted": (hop2, torch.int32, True),
+        # The 1,3J shape with 64-bit keys above 2^32.
+        "int64": (join2, torch.int64, False),
     }
-    sentinel = torch.iinfo(torch.int32).max
     results = {}
-    for case, (nq, nr, q_live, r_live) in cases.items():
+    for case, ((nq, nr, q_live, r_live), dtype, shuffled) in cases.items():
+        sentinel = torch.iinfo(dtype).max
+        offset = 0 if dtype == torch.int32 else 1 << 40
+
         def side(n, live):
-            keys = torch.full((batch, n), sentinel, dtype=torch.int32,
-                              device=dev)
-            keys[:, :live] = torch.sort(torch.randint(
+            keys = torch.full((batch, n), sentinel, dtype=dtype, device=dev)
+            keys[:, :live] = offset + torch.sort(torch.randint(
                 0, w.n_nodes, (batch, live), generator=gen, device=dev,
-                dtype=torch.int32), dim=-1).values
+                dtype=dtype), dim=-1).values
             return keys
         queries, keys = side(nq, q_live), side(nr, r_live)
+        if shuffled:
+            perm = torch.argsort(torch.rand(batch, nq, generator=gen,
+                                            device=dev), dim=-1)
+            queries = queries.gather(-1, perm).contiguous()
         lo, hi = probe_counts(queries, keys)
         lo_r, hi_r = ref.probe_counts(queries, keys)
         torch.cuda.synchronize()
@@ -495,6 +515,7 @@ def probe_counts_phase(w: Workload, gen, iters: int, dev) -> dict:
               f"probe_counts {case}: kernel != plain")
         err = float(max((lo - lo_r).abs().max(), (hi - hi_r).abs().max()))
         ms = time_ms(lambda: probe_counts(queries, keys), iters)
+        dev_ms = device_ms(lambda: probe_counts(queries, keys), iters)
         plain_ms = time_ms(lambda: ref.probe_counts(queries, keys), iters)
 
         def library():
@@ -502,27 +523,30 @@ def probe_counts_phase(w: Workload, gen, iters: int, dev) -> dict:
             torch.searchsorted(keys, queries, side="right", out_int32=True)
         lib_ms = time_ms(library, iters)
         steps = math.ceil(math.log2(nr + 1))
-        b_ms, b_by = bound_ms(batch * (nq * 4 + nr * 4 + nq * 8),
+        size = queries.element_size()
+        b_ms, b_by = bound_ms(batch * (nq * size + nr * size + nq * 8),
                               2 * batch * nq * steps)
-        results[case] = dict(shape=f"({batch},{nq})x({batch},{nr})",
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        results[case] = dict(shape=f"({batch},{nq})x({batch},{nr}) {dtype}",
+                             max_abs_err=err, ms=ms, device_ms=dev_ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by)
         log(f"kernel probe_counts {case}: {results[case]}")
         del queries, keys, lo, hi, lo_r, hi_r
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return results
 
 
 def hash_histogram_phase(w: Workload, gen, iters: int, dev) -> dict:
     from repro_torch.core.hashing import bucket_hash
     from repro_torch.kernels import ref
-    from repro_torch.kernels.hash_partition import hash_histogram
+    from repro_torch.kernels.hash_partition import (bucket_counts,
+                                                    hash_histogram)
 
     st, caps = w.stats, w.caps
     batch = math.prod(GRID)
     r, a1 = st.sizes[0], st.prefix_aggs[0]
     # (rows, keys per row, live prefix, buckets, key dtype, key range)
-    cases = {
+    shapes = {
         # The largest hop measure_skew reads on the main path: 2,3JA's
         # hop 2, whose left side is the pushdown Γ output (caps.agg
         # slots, a1 live rows), hashed into k = 16 buckets.
@@ -538,39 +562,67 @@ def hash_histogram_phase(w: Workload, gen, iters: int, dev) -> dict:
         "int64": (batch, caps.local, math.ceil(r / batch), K, torch.int64,
                   1 << 40),
     }
+    # Per-block counts at every shape; the totals (bucket_counts, what
+    # both callers launch) at the main path's largest hop, at its 4-bucket
+    # placement hop (the register counters) and at detection.
+    cases = [(name, "per_block") for name in shapes]
+    cases += [(name, "totals")
+              for name in ("cascade_hop2", "placement_1_3J", "detection")]
     results = {}
-    for case, (rows, n, live, nb, dtype, hi) in cases.items():
+    for name, form in cases:
+        rows, n, live, nb, dtype, hi = shapes[name]
         keys = torch.randint(0, hi, (rows, n), generator=gen, device=dev,
                              dtype=torch.int64).to(dtype)
         valid = torch.arange(n, device=dev).expand(rows, n) < live
-        got = hash_histogram(keys, valid, nb)
-        want = ref.hash_histogram(keys, valid, nb)
+        if form == "per_block":
+            case = name
+
+            def kernel():
+                return hash_histogram(keys, valid, nb)
+
+            def plain():
+                return ref.hash_histogram(keys, valid, nb)
+        else:
+            case = f"bucket_counts_{name}"
+
+            def kernel():
+                return bucket_counts(keys, valid, nb)
+
+            def plain():
+                return bucket_counts(keys, valid, nb, backend="ref")
+        got, want = kernel(), plain()
         torch.cuda.synchronize()
         check(got.shape == want.shape and torch.equal(got, want),
               f"hash_histogram {case}: kernel != plain")
         err = float((got - want).abs().max())
-        ms = time_ms(lambda: hash_histogram(keys, valid, nb), iters)
-        plain_ms = time_ms(lambda: ref.hash_histogram(keys, valid, nb), iters)
+        ms = time_ms(kernel, iters)
+        dev_ms = device_ms(kernel, iters)
+        plain_ms = time_ms(plain, iters)
         # The library yardstick does less work: torch.bincount over
-        # (row, block, bucket) cells computed outside the timing — it
-        # does not hash.
-        n_blocks, b = got.shape[-2], ref.histogram_block(n, 1024)
+        # (row, block, bucket) cells, or (row, bucket) cells for the
+        # totals, computed outside the timing — it does not hash.
+        b = ref.histogram_block(n, 1024) if form == "per_block" else n
+        n_blocks = -(-n // b)
         cell = (torch.arange(rows, device=dev)[:, None] * n_blocks
                 + torch.arange(n, device=dev) // b) * nb
         cell = torch.where(valid, cell + bucket_hash(keys, nb),
                            rows * n_blocks * nb).reshape(-1)
         size = rows * n_blocks * nb + 1
-        lib_ms = time_ms(lambda: torch.bincount(cell, minlength=size), iters)
+
+        def library():
+            return torch.bincount(cell, minlength=size)
+        lib_ms = time_ms(library, iters)
+        lib_dev_ms = device_ms(library, iters)
         # Every valid byte is read, a key only where it is valid (the
         # intermediate's buffers are mostly padding), every count written.
         n_valid = int(valid.sum())
         b_ms, b_by = bound_ms(rows * n + n_valid * keys.element_size()
                               + got.numel() * 4, 10 * n_valid)
-        results[case] = dict(shape=f"({rows},{n})->({rows},{n_blocks},{nb})",
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                             library="torch.bincount of precomputed cells "
-                                     "(does not hash)")
+        results[case] = dict(
+            shape=f"({rows},{n})->{tuple(got.shape)}", max_abs_err=err,
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
+            library="torch.bincount of precomputed cells (does not hash)")
         log(f"kernel hash_histogram {case}: {results[case]}")
         del keys, valid, got, want, cell
     torch.cuda.empty_cache()
@@ -1034,9 +1086,10 @@ def main(argv=None) -> int:
     if args.profile is not None:
         profile_runs(w, skew, dev, args.profile)
 
-    # The heaviest case of each kernel's path goes into the line.
+    # The heaviest case of each kernel's path goes into the line; the
+    # path's hash_histogram launches are all bucket_counts.
     headline = {"segment_sum": "final", "probe_counts": "one_round_join2",
-                "hash_histogram": "cascade_hop2",
+                "hash_histogram": "bucket_counts_cascade_hop2",
                 "flash_attention": "prefill_bfloat16"}
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,36 +1,74 @@
-// hash_histogram: salted multiplicative hash + per-block bucket counts,
-// batched (B, N) keys -> (B, n_blocks, n_buckets) int32.
+// hash_histogram: salted multiplicative hash + bucket counts of the
+// valid keys, batched (B, N) keys: per block, (B, n_blocks, n_buckets)
+// int32 (hash_histogram_*), or summed over the row, (B, n_buckets)
+// int32 (bucket_counts_*).
 //
 // Replaces the TPU kernel src/repro/kernels/hash_partition.py::
 // hash_histogram (_kernel, which hashes a (1, block) VMEM tile on the
 // VPU and counts with a one-hot (block x 128-lane) reduction, no
 // atomics).  Column j of block i of row b counts the valid keys of
 // rows [i*block, (i+1)*block) of that row whose bucket is j; rows past
-// N and rows with valid == 0 count nowhere.
+// N and rows with valid == 0 count nowhere.  Both callers of the
+// totals (the executor's skew diagnostic and the heavy-hitter
+// detector) want only the sum over blocks, which bucket_counts_*
+// computes in one launch.
 //
 // One hash everywhere: the port's core/hashing.bucket_hash, bit for
 // bit — int32 keys hash their 32 bits, int64 keys fold high xor low
 // word first — then (u ^ salt) * 2654435761, u ^= u >> 15,
 // u *= 0x846CA68B, u ^= u >> 13, u % n_buckets, all in native uint32
-// arithmetic (the CPU version emulates it in int64).
+// arithmetic (the CPU version emulates it in int64); the remainder is
+// taken with a multiply by a reciprocal computed on the host
+// (Lemire's fastmod, exact for every 32-bit u and divisor).
 //
-// Bound on the H100: device-memory bytes — each key (4 or 8 bytes) and
-// its valid byte are read once, each count written once.  The design:
+// Bound on the H100: device-memory bytes — each valid byte is read
+// once, a key only where it is valid, each count written once.  The
+// main path's buffers are mostly padding and its bucket counts small
+// (4 and 16).  The design:
 //
-//   * grid (n_blocks, B); one CTA of 256 threads per (row, block);
-//   * the CTA zeroes a histogram of n_buckets ints in shared memory,
-//     its threads walk the block with a stride of 256 (coalesced
-//     loads), hash, and count with shared-memory atomics;
-//   * the CTA writes its histogram as one row of the output.
-//
-// Few buckets (the main path's 4 and 16) make the shared atomics
-// collide; privatising a histogram per warp is the later redesign.
+//   * per block (hash_histogram_*): grid (n_blocks, B), one CTA of 256
+//     threads a (row, block); its threads walk the block with a stride
+//     of 256 (coalesced loads), hash the valid keys and count them with
+//     atomics into one shared histogram, written as one row of the
+//     output.  (Measured on the H100: one warp a block with private
+//     histograms was no faster at the path's shape and slower at the
+//     others; see PERF.md);
+//   * totals (bucket_counts_*): grid (CTAs, B) of 1,024 threads, a
+//     chunk of 16 rows a thread where the card holds that many CTAs (a
+//     grid stride else).  Chunks lie on 16-byte boundaries of the mask:
+//     one 16-byte load of the mask a chunk (scalar loads at the row's
+//     ends); a warp whose chunks hold no valid row skips them; keys are
+//     loaded 16 bytes at a time where a group of rows is all valid and
+//     aligned, one at a time where it is valid only;
+//   * totals' counts: with at most 4 buckets each lane counts in one
+//     register, a byte a bucket, and every 255 rows, and at the end,
+//     the warp adds each bucket's bytes over its lanes
+//     (__reduce_add_sync).  With more buckets, shared atomics into a
+//     histogram private to the warp (up to 384 buckets), else one a CTA
+//     (up to 12,288).  (Measured on the H100: lane counters for 16
+//     buckets, and __match_any_sync aggregation, were slower than
+//     shared atomics; see PERF.md);
+//   * totals' output: one global atomicAdd a (CTA, nonzero bucket) onto
+//     the zeroed output (integer adds commute: every launch gives the
+//     same counts).  The launch zeroes the output first
+//     (cudaMemsetAsync); a row walked by one CTA is stored directly, and
+//     then nothing is zeroed.
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;               // per-block kernel
+constexpr int kTotalsThreads = 1024;        // totals kernel
+constexpr int kChunk = 16;                  // rows a thread takes at a time
+constexpr int kFlushRows = 255;             // rows a byte count holds
+constexpr int kRegisterBuckets = 4;         // a byte each in one register
+constexpr unsigned kFull = 0xffffffffu;
+constexpr long long kSmemBytes = 48 * 1024;
 
 __device__ __forceinline__ unsigned fold(int x) {
   return static_cast<unsigned>(x);
@@ -41,50 +79,288 @@ __device__ __forceinline__ unsigned fold(long long x) {
   return static_cast<unsigned>(u ^ (u >> 32));
 }
 
+struct Hash {
+  unsigned n_buckets;
+  unsigned salt;
+  unsigned long long magic;                 // 2^64 / n_buckets, rounded up
+
+  template <typename K>
+  __device__ __forceinline__ unsigned operator()(K key) const {
+    unsigned u = (fold(key) ^ salt) * 2654435761u;
+    u ^= u >> 15;
+    u *= 0x846CA68Bu;
+    u ^= u >> 13;
+    return static_cast<unsigned>(__umul64hi(magic * u, n_buckets));
+  }
+};
+
+Hash make_hash(long long n_buckets, long long salt) {
+  const unsigned long long d = static_cast<unsigned long long>(n_buckets);
+  return {static_cast<unsigned>(n_buckets), static_cast<unsigned>(salt),
+          ~0ULL / d + 1};
+}
+
+__device__ __forceinline__ unsigned byte_of(const unsigned (&m)[4], int j) {
+  return (m[j >> 2] >> (8 * (j & 3))) & 0xffu;
+}
+
+// The 16 keys of rows [r0, r0 + 16) that are valid (the rest left 0).
+__device__ __forceinline__ void load_keys(const int* krow, long long r0,
+                                          const unsigned (&m)[4],
+                                          int (&k)[kChunk]) {
+#pragma unroll
+  for (int g = 0; g < kChunk; g += 4) {
+    const int* p = krow + r0 + g;
+    if (m[g >> 2] == 0x01010101u
+        && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+      k[g] = v.x; k[g + 1] = v.y; k[g + 2] = v.z; k[g + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = g; j < g + 4; ++j)
+        k[j] = byte_of(m, j) ? __ldg(krow + r0 + j) : 0;
+    }
+  }
+}
+
+__device__ __forceinline__ void load_keys(const long long* krow,
+                                          long long r0,
+                                          const unsigned (&m)[4],
+                                          long long (&k)[kChunk]) {
+#pragma unroll
+  for (int g = 0; g < kChunk; g += 2) {
+    const long long* p = krow + r0 + g;
+    const unsigned pair = (m[g >> 2] >> (8 * (g & 3))) & 0xffffu;
+    if (pair == 0x0101u && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+      const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(p));
+      k[g] = v.x; k[g + 1] = v.y;
+    } else {
+#pragma unroll
+      for (int j = g; j < g + 2; ++j)
+        k[j] = byte_of(m, j) ? __ldg(krow + r0 + j) : 0;
+    }
+  }
+}
+
+// Adds the warp's byte counts of buckets 0..3 over its lanes into lane
+// j's total of bucket j, and clears them.
+__device__ __forceinline__ void flush(unsigned& c, unsigned n_buckets,
+                                      int& mine) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (b < static_cast<int>(n_buckets)) {              // warp-uniform
+      const unsigned s = __reduce_add_sync(kFull, (c >> (8 * b)) & 0xffu);
+      if (lane == b) mine += static_cast<int>(s);
+    }
+  }
+  c = 0;
+}
+
+// The mask bytes of rows [r0, r0 + 16) that lie in [start, end) (0
+// elsewhere): one 16-byte load where the chunk lies inside, scalar
+// loads at the range's ends.
+__device__ __forceinline__ void load_mask(const unsigned char* vrow,
+                                          long long r0, long long start,
+                                          long long end, unsigned (&m)[4]) {
+  if (r0 >= start && r0 + kChunk <= end) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(vrow + r0));
+    m[0] = v.x; m[1] = v.y; m[2] = v.z; m[3] = v.w;
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      unsigned word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = r0 + 4 * w + j;
+        if (i >= start && i < end && vrow[i]) word |= 1u << (8 * j);
+      }
+      m[w] = word;
+    }
+  }
+}
+
+// Count the valid rows of one row of n.  The row is cut into 16-row
+// chunks on 16-byte boundaries of the mask; this thread takes chunks
+// `chunk`, `chunk + stride`, ..., where `chunk` is a warp's first chunk
+// plus the lane (the loop is warp-uniform, as the warp collectives
+// need).  kRegisters (at most 4 buckets): counts in a register, and the
+// return value is the warp's count of bucket `lane` (0 past n_buckets).
+// Else shared atomics into hist, and the return value is 0.
+template <bool kRegisters, typename K>
+__device__ int count_rows(const K* __restrict__ krow,
+                          const unsigned char* __restrict__ vrow,
+                          long long n, long long chunk, long long stride,
+                          int* hist, const Hash& hash) {
+  constexpr int kFlushEvery = kFlushRows / kChunk;
+  const int lane = threadIdx.x & 31;
+  const long long base =
+      -static_cast<long long>(reinterpret_cast<uintptr_t>(vrow) & 15);
+  const long long n_chunks = (n - base + kChunk - 1) / kChunk;
+  unsigned c = 0;
+  int mine = 0, pending = 0;
+  for (long long c0 = chunk; c0 - lane < n_chunks; c0 += stride) {
+    const long long r0 = base + c0 * kChunk;
+    unsigned m[4];
+    load_mask(vrow, r0, 0, n, m);
+    if (!__any_sync(kFull, (m[0] | m[1] | m[2] | m[3]) != 0)) continue;
+
+    K k[kChunk];
+    load_keys(krow, r0, m, k);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      const bool live = byte_of(m, j) != 0;
+      const unsigned bkt = hash(k[j]);
+      if constexpr (kRegisters) {
+        c += live ? 1u << (8 * bkt) : 0u;
+      } else if (live) {
+        atomicAdd(hist + bkt, 1);
+      }
+    }
+    if constexpr (kRegisters) {
+      if (++pending == kFlushEvery) {
+        flush(c, hash.n_buckets, mine);
+        pending = 0;
+      }
+    }
+  }
+  if constexpr (kRegisters) flush(c, hash.n_buckets, mine);
+  return mine;
+}
+
+// Per block: grid (n_blocks, B), one CTA a (row, block), one shared
+// histogram.
 template <typename K>
 __global__ void __launch_bounds__(kThreads)
-hash_histogram_kernel(const K* __restrict__ keys,
-                      const unsigned char* __restrict__ valid,
-                      int* __restrict__ out, long long n, long long block,
-                      long long n_blocks, unsigned n_buckets,
-                      unsigned salt) {
+hist_blocks(const K* __restrict__ keys,
+            const unsigned char* __restrict__ valid, int* __restrict__ out,
+            long long n, long long block, long long n_blocks, Hash hash) {
   extern __shared__ int hist[];
   const long long row = blockIdx.y;
   const long long blk = blockIdx.x;
-  for (unsigned j = threadIdx.x; j < n_buckets; j += kThreads) hist[j] = 0;
+  const unsigned nb = hash.n_buckets;
+  for (unsigned j = threadIdx.x; j < nb; j += kThreads) hist[j] = 0;
   __syncthreads();
 
   const long long start = blk * block;
   const long long end = min(start + block, n);
   const K* k = keys + row * n;
   const unsigned char* v = valid + row * n;
-  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    if (v[i]) {
-      unsigned u = (fold(k[i]) ^ salt) * 2654435761u;
-      u ^= u >> 15;
-      u *= 0x846CA68Bu;
-      u ^= u >> 13;
-      atomicAdd(&hist[u % n_buckets], 1);
-    }
-  }
+  for (long long i = start + threadIdx.x; i < end; i += kThreads)
+    if (v[i]) atomicAdd(&hist[hash(k[i])], 1);
   __syncthreads();
 
-  int* o = out + (row * n_blocks + blk) * n_buckets;
-  for (unsigned j = threadIdx.x; j < n_buckets; j += kThreads) o[j] = hist[j];
+  int* o = out + (row * n_blocks + blk) * nb;
+  for (unsigned j = threadIdx.x; j < nb; j += kThreads) o[j] = hist[j];
+}
+
+// Totals: grid (CTAs, B); `copies` shared histograms a CTA, one a warp
+// where 32 fit, else one.
+template <bool kRegisters, typename K>
+__global__ void __launch_bounds__(kTotalsThreads)
+bucket_totals(const K* __restrict__ keys,
+              const unsigned char* __restrict__ valid, int* __restrict__ out,
+              long long n, Hash hash, int copies) {
+  extern __shared__ int hist[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = blockIdx.y;
+  const unsigned nb = hash.n_buckets;
+  for (unsigned j = threadIdx.x; j < copies * nb; j += kTotalsThreads)
+    hist[j] = 0;
+  __syncthreads();
+  int* mine_hist = hist + (warp % copies) * nb;
+  const int mine = count_rows<kRegisters>(
+      keys + row * n, valid + row * n, n,
+      static_cast<long long>(blockIdx.x) * kTotalsThreads + threadIdx.x,
+      static_cast<long long>(gridDim.x) * kTotalsThreads, mine_hist, hash);
+  if (kRegisters && mine) atomicAdd(mine_hist + lane, mine);
+  __syncthreads();
+  int* o = out + row * nb;
+  for (unsigned j = threadIdx.x; j < nb; j += kTotalsThreads) {
+    int s = 0;
+    for (int w = 0; w < copies; ++w) s += hist[w * nb + j];
+    if (gridDim.x == 1) o[j] = s;
+    else if (s) atomicAdd(o + j, s);
+  }
 }
 
 template <typename K>
-int launch(const K* keys, const unsigned char* valid, int* out,
-           long long batch, long long n, long long block, long long n_blocks,
-           long long n_buckets, long long salt, void* stream) {
+int launch_blocks(const K* keys, const unsigned char* valid, int* out,
+                  long long batch, long long n, long long block,
+                  long long n_blocks, long long n_buckets, long long salt,
+                  void* stream) {
   if (batch == 0 || n_blocks == 0) return 0;
   dim3 grid(static_cast<unsigned>(n_blocks), static_cast<unsigned>(batch));
   const size_t smem = static_cast<size_t>(n_buckets) * sizeof(int);
-  hash_histogram_kernel<K><<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      keys, valid, out, n, block, n_blocks, static_cast<unsigned>(n_buckets),
-      static_cast<unsigned>(salt));
+  hist_blocks<K><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      keys, valid, out, n, block, n_blocks, make_hash(n_buckets, salt));
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of bucket_totals<kRegisters, K> the current card holds at once,
+// for the most shared memory a launch gives it (48 KB: a launch with
+// less never fits fewer CTAs; on the H100 a 1,024-thread CTA's threads
+// set the count, two an SM, either way).  The runtime is asked once a
+// device: the answer never changes while the process runs, and the
+// totals are launched on every measured shuffle hop.
+template <bool kRegisters, typename K>
+int resident_ctas(int* out) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> cache[kDevices];      // 0: not asked yet
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < kDevices && (*out = cache[device].load()) > 0) return 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bucket_totals<kRegisters, K>, kTotalsThreads, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out = std::max(1, sms * per_sm);
+  if (device < kDevices) cache[device].store(*out);
+  return 0;
+}
+
+template <bool kRegisters, typename K>
+int launch_totals_as(const K* keys, const unsigned char* valid, int* out,
+                     long long batch, long long n, const Hash& hash,
+                     cudaStream_t st) {
+  const int copies = static_cast<long long>(kTotalsThreads / 32)
+                       * hash.n_buckets * sizeof(int) <= kSmemBytes
+                   ? kTotalsThreads / 32 : 1;
+  const size_t smem = copies * hash.n_buckets * sizeof(int);
+  int resident = 0;
+  const int rc = resident_ctas<kRegisters, K>(&resident);
+  if (rc != 0) return rc;
+  // A chunk a thread where the card holds that many CTAs, else as many
+  // as it holds; the walk is a grid stride, so any CTA count covers the
+  // row.
+  const long long per_cta = kChunk * kTotalsThreads;
+  const long long spans = (n + kChunk + per_cta - 1) / per_cta;
+  const long long ctas =
+      std::max(1LL, std::min(spans, std::max(1LL, resident / batch)));
+  if (ctas > 1) {
+    const cudaError_t err =
+        cudaMemsetAsync(out, 0, batch * hash.n_buckets * sizeof(int), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  bucket_totals<kRegisters, K><<<dim3(static_cast<unsigned>(ctas),
+                                      static_cast<unsigned>(batch)),
+                                 kTotalsThreads, smem, st>>>(
+      keys, valid, out, n, hash, copies);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int launch_totals(const K* keys, const unsigned char* valid, int* out,
+                  long long batch, long long n, long long n_buckets,
+                  long long salt, void* stream) {
+  if (batch == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Hash hash = make_hash(n_buckets, salt);
+  return n_buckets <= kRegisterBuckets
+      ? launch_totals_as<true>(keys, valid, out, batch, n, hash, st)
+      : launch_totals_as<false>(keys, valid, out, batch, n, hash, st);
 }
 
 }  // namespace
@@ -94,8 +370,8 @@ extern "C" int hash_histogram_i32(const int* keys, const unsigned char* valid,
                                   long long block, long long n_blocks,
                                   long long n_buckets, long long salt,
                                   void* stream) {
-  return launch<int>(keys, valid, out, batch, n, block, n_blocks, n_buckets,
-                     salt, stream);
+  return launch_blocks<int>(keys, valid, out, batch, n, block, n_blocks,
+                            n_buckets, salt, stream);
 }
 
 extern "C" int hash_histogram_i64(const long long* keys,
@@ -104,8 +380,25 @@ extern "C" int hash_histogram_i64(const long long* keys,
                                   long long block, long long n_blocks,
                                   long long n_buckets, long long salt,
                                   void* stream) {
-  return launch<long long>(keys, valid, out, batch, n, block, n_blocks,
-                           n_buckets, salt, stream);
+  return launch_blocks<long long>(keys, valid, out, batch, n, block,
+                                  n_blocks, n_buckets, salt, stream);
+}
+
+extern "C" int bucket_counts_i32(const int* keys, const unsigned char* valid,
+                                 int* out, long long batch, long long n,
+                                 long long n_buckets, long long salt,
+                                 void* stream) {
+  return launch_totals<int>(keys, valid, out, batch, n, n_buckets, salt,
+                            stream);
+}
+
+extern "C" int bucket_counts_i64(const long long* keys,
+                                 const unsigned char* valid, int* out,
+                                 long long batch, long long n,
+                                 long long n_buckets, long long salt,
+                                 void* stream) {
+  return launch_totals<long long>(keys, valid, out, batch, n, n_buckets,
+                                  salt, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -2,62 +2,379 @@
 //
 // Replaces the TPU kernel src/repro/kernels/fused_join.py::
 // probe_counts_pallas (_probe_kernel, which streams query-block x
-// key-block tiles through VMEM and counts with dense compares on the
-// diagonal band).  For every query q of row b, against that row's
-// sorted keys r:
+// key-block tiles through VMEM, takes each query block's min and max,
+// and pays the dense compare only on the boundary band).  For every
+// query q of row b, against that row's sorted keys r:
 //
 //   lo = #{r < q}  (lower_bound),   hi = #{r <= q}  (upper_bound),
 //
-// equal to torch.searchsorted left/right as integers, sentinel-padded
-// tails and a valid INT32_MAX / INT64_MAX key included (a search
-// cannot return more than nr, so the counts are clamped to nr).
+// equal to torch.searchsorted left/right as integers for any queries,
+// sorted or not, sentinel-padded tails and a valid INT32_MAX /
+// INT64_MAX key included (a search cannot return more than nr).
 //
 // Bound on the H100: device-memory bytes — each query is read once and
-// two int32 counts are written; the key column is small enough per row
-// that its upper search levels stay in L2.  The design is one thread
-// per query running two binary searches (the second starts at the
-// first's answer), with consecutive threads on consecutive queries so
-// loads and stores are coalesced.  A merge-path kernel that walks both
-// sorted sides in shared memory is the later redesign.
+// two int32 counts are written.  The join's queries are sorted with a
+// sentinel tail that is almost all of the buffer, so most tiles of
+// consecutive queries hold one value, and a live tile spans a few dozen
+// keys.  The design (a tile-window probe, one warp a tile):
+//
+//   * warp tiles of 256 consecutive queries of one row, 8 a lane, laid
+//     on 16-byte boundaries of the query row (a row whose base is not
+//     aligned still gets 16-byte loads); a lane's queries lie in
+//     16-byte groups 512 bytes apart, so each warp-wide load or store
+//     is one contiguous span.  A group that is not aligned, or crosses
+//     a row end, takes scalar loads and stores;
+//   * grid (CTAs, B) of 256 threads, as many CTAs as the card holds at
+//     once; each warp walks its row's tiles with a stride and loads its
+//     next tile while it counts this one.  No CTA barrier anywhere;
+//   * shuffles give the tile's qmin and qmax; the warp finds
+//     lower_bound(qmin) and upper_bound(qmax) in the row by a 32-ary
+//     search (31 pivots a step, one load a lane): the window [wlo, whi)
+//     that holds every answer of the tile;
+//   * qmin == qmax: every query of the tile has (lo, hi) = (wlo, whi),
+//     written without a search, and the warp keeps that answer: its
+//     later tiles of the same value (the sentinel tail) skip the window
+//     search too, so the tail is a pure streaming read and write;
+//   * a window of at most kWindow keys is staged into the warp's shared
+//     memory and each query binary-searches it (from the previous
+//     query's lo where the lane's queries ascend);
+//   * a larger window (unsorted queries) is searched in device memory,
+//     inside the window only, by a branch-free search whose halving
+//     steps do not depend on the data, so a lane's 8 queries take each
+//     step together: 8 independent loads in flight, not 8 chains.
+
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kItems = 8;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32 * kItems;       // queries of a warp tile
+constexpr int kWindow = 512;             // keys a warp stages in shared memory
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename K> struct Limits;
+template <> struct Limits<int> {
+  static __device__ __forceinline__ int lowest() { return INT32_MIN; }
+  static __device__ __forceinline__ int highest() { return INT32_MAX; }
+};
+template <> struct Limits<long long> {
+  static __device__ __forceinline__ long long lowest() { return INT64_MIN; }
+  static __device__ __forceinline__ long long highest() { return INT64_MAX; }
+};
+
+// A lane's kItems queries of a warp tile lie in groups of kVec<K>
+// consecutive queries (16 bytes), group g at g * 32 * kVec + lane *
+// kVec from the tile's start, so each warp-wide load or store of a
+// group covers one contiguous span.
+template <typename K> constexpr int kVec = 16 / sizeof(K);
+
+__device__ __forceinline__ void load_vec(const int* p, int* q) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  q[0] = v.x; q[1] = v.y; q[2] = v.z; q[3] = v.w;
+}
+
+__device__ __forceinline__ void load_vec(const long long* p, long long* q) {
+  const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(p));
+  q[0] = v.x; q[1] = v.y;
+}
+
+// The counts of one group: 16 bytes (int32 keys) or 8 (int64 keys).
+template <int V>
+__device__ __forceinline__ void store_vec(int* p, const int* c) {
+  if constexpr (V == 4)
+    *reinterpret_cast<int4*>(p) = make_int4(c[0], c[1], c[2], c[3]);
+  else
+    *reinterpret_cast<int2*>(p) = make_int2(c[0], c[1]);
+}
+
+// lower_bound (kUpper false: first row[m] >= q) or upper_bound (kUpper
+// true: first row[m] > q) of q in row[0, n), by the whole warp: each
+// step compares 31 pivots that cut the range into 32 parts.  Every lane
+// returns the answer.
+template <bool kUpper, typename K>
+__device__ long long warp_bound(const K* __restrict__ row, long long n,
+                                K q) {
+  const int lane = threadIdx.x & 31;
+  long long first = 0, last = n;        // the answer lies in [first, last]
+  while (last - first > 32) {
+    const long long span = last - first;
+    const long long m = first + (static_cast<long long>(lane) + 1) * span / 32;
+    bool below = false;
+    if (lane < 31) {
+      const K r = __ldg(row + m);
+      below = kUpper ? r <= q : r < q;
+    }
+    const int c = __popc(__ballot_sync(kFull, below));   // a prefix
+    const long long m_lo = __shfl_sync(kFull, m, c > 0 ? c - 1 : 0);
+    const long long m_hi = __shfl_sync(kFull, m, c < 31 ? c : 0);
+    if (c > 0) first = m_lo + 1;
+    if (c < 31) last = m_hi;
+  }
+  const long long m = first + lane;
+  bool below = false;
+  if (m < last) {
+    const K r = __ldg(row + m);
+    below = kUpper ? r <= q : r < q;
+  }
+  return first + __popc(__ballot_sync(kFull, below));
+}
+
+// First index in [first, last) of s whose key is >= q (kUpper false) or
+// > q (kUpper true); last where there is none.
+template <bool kUpper, typename K>
+__device__ __forceinline__ long long bound(const K* s, long long first,
+                                           long long last, K q) {
+  while (first < last) {
+    const long long mid = (first + last) >> 1;
+    const K r = s[mid];
+    if (kUpper ? r <= q : r < q) first = mid + 1; else last = mid;
+  }
+  return first;
+}
+
+// Query index of a lane's item j in the tile that starts at t0.
+template <typename K>
+__device__ __forceinline__ long long item(long long t0, int j) {
+  constexpr int V = kVec<K>;
+  return t0 + (j / V) * 32 * V + (threadIdx.x & 31) * V + j % V;
+}
+
+template <typename K>
+__device__ __forceinline__ void load_tile(const K* __restrict__ qrow,
+                                          long long t0, long long nq,
+                                          bool aligned, K (&q)[kItems]) {
+  constexpr int V = kVec<K>;
+#pragma unroll
+  for (int j = 0; j < kItems; j += V) {
+    const long long i = item<K>(t0, j);
+    if (aligned && i >= 0 && i + V <= nq) {
+      load_vec(qrow + i, q + j);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        q[j + v] = (i + v >= 0 && i + v < nq) ? __ldg(qrow + i + v) : K(0);
+    }
+  }
+}
+
+template <typename K>
+__device__ __forceinline__ void store_tile(int* __restrict__ lrow,
+                                           int* __restrict__ hrow,
+                                           long long t0, long long nq,
+                                           bool aligned, const int (&l)[kItems],
+                                           const int (&h)[kItems]) {
+  constexpr int V = kVec<K>;
+#pragma unroll
+  for (int j = 0; j < kItems; j += V) {
+    const long long i = item<K>(t0, j);
+    if (aligned && i >= 0 && i + V <= nq) {
+      store_vec<V>(lrow + i, l + j);
+      store_vec<V>(hrow + i, h + j);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (i + v >= 0 && i + v < nq) {
+          lrow[i + v] = l[j + v];
+          hrow[i + v] = h[j + v];
+        }
+      }
+    }
+  }
+}
+
+// lower_bound (kUpper false) or upper_bound (kUpper true) of each of a
+// lane's queries in row[first, last), first < last, all in lockstep: the
+// halving sequence of the range does not depend on the comparisons
+// (a branch-free search), so the kItems probes of a step are
+// independent loads in flight together.
+template <bool kUpper, typename K>
+__device__ __forceinline__ void lockstep_bounds(const K* __restrict__ row,
+                                                const K (&q)[kItems],
+                                                long long first,
+                                                long long last,
+                                                int (&out)[kItems]) {
+  int base[kItems];                      // nr < 2^31 (the wrapper checks)
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) base[j] = static_cast<int>(first);
+  for (int n = static_cast<int>(last - first); n > 1;) {
+    const int half = n >> 1;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const K r = __ldg(row + base[j] + half);
+      if (kUpper ? r <= q[j] : r < q[j]) base[j] += half;
+    }
+    n -= half;
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const K r = __ldg(row + base[j]);
+    out[j] = base[j] + (kUpper ? r <= q[j] : r < q[j]);
+  }
+}
+
+// Counts of a warp tile's queries against the row, given the tile's
+// window [wlo, whi): a broadcast where the tile holds one value, a
+// search of the window staged in the warp's shared memory, or of the
+// row inside the window.
+template <typename K>
+__device__ __forceinline__ void tile_counts(const K* __restrict__ krow,
+                                            K* window, const K (&q)[kItems],
+                                            K qmin, K qmax, long long wlo,
+                                            long long whi, int (&l)[kItems],
+                                            int (&h)[kItems]) {
+  const long long width = whi - wlo;
+  if (qmin == qmax) {                   // one value: no search
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      l[j] = static_cast<int>(wlo);
+      h[j] = static_cast<int>(whi);
+    }
+  } else if (width <= kWindow) {        // warp-uniform branch
+    __syncwarp();                       // the last tile's reads are done
+    for (long long i = threadIdx.x & 31; i < width; i += 32)
+      window[i] = __ldg(krow + wlo + i);
+    __syncwarp();
+    long long prev = 0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long from = (j > 0 && q[j] >= q[j - 1]) ? prev : 0;
+      const long long a = bound<false>(window, from, width, q[j]);
+      const long long c = bound<true>(window, a, width, q[j]);
+      prev = a;
+      l[j] = static_cast<int>(wlo + a);
+      h[j] = static_cast<int>(wlo + c);
+    }
+  } else {
+    lockstep_bounds<false>(krow, q, wlo, whi, l);
+    lockstep_bounds<true>(krow, q, wlo, whi, h);
+  }
+}
 
 template <typename K>
 __global__ void __launch_bounds__(kThreads)
 probe_counts_kernel(const K* __restrict__ queries,
                     const K* __restrict__ sorted_keys, int* __restrict__ lo,
                     int* __restrict__ hi, long long nq, long long nr) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= nq) return;
-  const long long b = blockIdx.y;
-  const K* row = sorted_keys + b * nr;
-  const K q = queries[b * nq + i];
+  __shared__ K windows[kThreads / 32][kWindow];
 
-  long long first = 0, last = nr;  // lower_bound: first row[m] >= q
-  while (first < last) {
-    const long long mid = (first + last) >> 1;
-    if (row[mid] < q) first = mid + 1; else last = mid;
+  const long long b = blockIdx.y;
+  K* window = windows[threadIdx.x >> 5];
+  const K* qrow = queries + b * nq;
+  const K* krow = sorted_keys + b * nr;
+  int* lrow = lo + b * nq;
+  int* hrow = hi + b * nq;
+
+  // Warp tiles start on 16-byte boundaries of the query row; tile k
+  // holds queries [k * kTile - shift, (k + 1) * kTile - shift).  A
+  // lane's groups lie 512 bytes of queries apart and its tiles kTile
+  // queries apart, so its alignment is the same in all of them.
+  const long long shift = static_cast<long long>(
+      (reinterpret_cast<uintptr_t>(qrow) & 15) / sizeof(K));
+  const long long n_tiles = (nq + shift + kTile - 1) / kTile;
+  const long long first = item<K>(-shift, 0);
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(qrow + first) & 15) == 0
+      && ((reinterpret_cast<uintptr_t>(lrow + first)
+           | reinterpret_cast<uintptr_t>(hrow + first))
+          & (4 * kVec<K> - 1)) == 0;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+
+  // The answer of the warp's last one-value tile: the sentinel tail's
+  // tiles after the first need no search.
+  bool cached = false;
+  K cq = 0;
+  long long clo = 0, chi = 0;
+
+  long long tile = static_cast<long long>(blockIdx.x) * kWarps
+                   + (threadIdx.x >> 5);
+  K q[kItems], next[kItems];
+  if (tile < n_tiles) load_tile(qrow, tile * kTile - shift, nq, aligned, q);
+  for (; tile < n_tiles; tile += stride) {              // warp-uniform
+    const long long t0 = tile * kTile - shift;
+    // Load the warp's next tile while this one is counted.
+    const long long after = tile + stride;
+    if (after < n_tiles)
+      load_tile(qrow, after * kTile - shift, nq, aligned, next);
+
+    // The tile's qmin and qmax (rows outside [0, nq) count for neither).
+    K qmin = Limits<K>::highest(), qmax = Limits<K>::lowest();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = item<K>(t0, j);
+      if (i >= 0 && i < nq) {
+        qmin = min(qmin, q[j]);
+        qmax = max(qmax, q[j]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      qmin = min(qmin, __shfl_xor_sync(kFull, qmin, off));
+      qmax = max(qmax, __shfl_xor_sync(kFull, qmax, off));
+    }
+
+    // The window, unless the tile repeats the cached value.
+    long long wlo, whi;
+    if (cached && qmin == qmax && qmin == cq) {
+      wlo = clo;
+      whi = chi;
+    } else {
+      wlo = warp_bound<false>(krow, nr, qmin);
+      whi = warp_bound<true>(krow, nr, qmax);
+      if (qmin == qmax) {
+        cached = true;
+        cq = qmin;
+        clo = wlo;
+        chi = whi;
+      }
+    }
+
+    int l[kItems], h[kItems];
+    tile_counts(krow, window, q, qmin, qmax, wlo, whi, l, h);
+    store_tile<K>(lrow, hrow, t0, nq, aligned, l, h);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) q[j] = next[j];
   }
-  const long long lower = first;
-  last = nr;                        // upper_bound: first row[m] > q
-  while (first < last) {
-    const long long mid = (first + last) >> 1;
-    if (row[mid] <= q) first = mid + 1; else last = mid;
-  }
-  lo[b * nq + i] = static_cast<int>(lower);
-  hi[b * nq + i] = static_cast<int>(first);
+}
+
+// CTAs the card holds at once, for one 256-thread CTA's resources.
+// The runtime is asked once a device: the answer never changes while the
+// process runs, and the kernel is launched on every fused join.
+template <typename K>
+int resident_ctas(int* out) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> cache[kDevices];      // 0: not asked yet
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < kDevices && (*out = cache[device].load()) > 0) return 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, probe_counts_kernel<K>, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out = std::max(1, sms * per_sm);
+  if (device < kDevices) cache[device].store(*out);
+  return 0;
 }
 
 template <typename K>
 int launch(const K* queries, const K* sorted_keys, int* lo, int* hi,
            long long batch, long long nq, long long nr, void* stream) {
   if (batch == 0 || nq == 0) return 0;
-  dim3 grid(static_cast<unsigned>((nq + kThreads - 1) / kThreads),
-            static_cast<unsigned>(batch));
+  int resident = 0;
+  const int err = resident_ctas<K>(&resident);
+  if (err != 0) return err;
+  // One more tile than nq needs covers the shift of a misaligned row;
+  // the warps of a row walk its tiles with a stride, all resident at once.
+  const long long ctas = ((nq + 3 + kTile - 1) / kTile + kWarps - 1) / kWarps;
+  const long long per_row = std::max(1LL, std::min(ctas, resident / batch));
+  dim3 grid(static_cast<unsigned>(per_row), static_cast<unsigned>(batch));
   probe_counts_kernel<K><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       queries, sorted_keys, lo, hi, nq, nr);
   return static_cast<int>(cudaGetLastError());

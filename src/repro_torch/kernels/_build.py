@@ -24,6 +24,7 @@ from typing import Dict, Iterable
 
 _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _HIST = (_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P)
+_TOTALS = (_P, _P, _P, _LL, _LL, _LL, _LL, _P)
 _ATTN = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _LL, _LL, _P)
 _ATTN_WGMMA = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _P)
 _ATTN_SPLIT = (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL,
@@ -37,7 +38,9 @@ SIGNATURES = {
         "probe_counts_i64": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
     },
     "hash_histogram": {"hash_histogram_i32": _HIST,
-                       "hash_histogram_i64": _HIST},
+                       "hash_histogram_i64": _HIST,
+                       "bucket_counts_i32": _TOTALS,
+                       "bucket_counts_i64": _TOTALS},
     "flash_attention": {"flash_attention_f32": _ATTN,
                         "flash_attention_wgmma_bf16": _ATTN_WGMMA,
                         "flash_attention_split_f32": _ATTN_SPLIT,

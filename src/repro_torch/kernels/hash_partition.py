@@ -8,7 +8,10 @@ Port of ``src/repro/kernels/hash_partition.py``:
   ``backend="ref"``, it runs the plain version ``ref.hash_histogram``.
 * :func:`bucket_counts` — the global bucket-load histogram of one
   shuffle hop (the executor's skew diagnostic and the heavy-hitter
-  detector's candidate filter): the per-block counts summed.
+  detector's candidate filter): the per-block counts summed.  On CUDA
+  tensors it is one launch of the same source's totals kernel, which
+  never forms the per-block counts; the plain version sums
+  ``ref.hash_histogram`` over blocks.
 * :func:`partition_offsets` — the exclusive scan that turns per-block
   counts into the send-buffer write offsets.
 
@@ -28,7 +31,7 @@ from . import _build, ref
 
 __all__ = ["hash_histogram", "bucket_counts", "partition_offsets"]
 
-#: Buckets the kernel's shared-memory histogram holds (48 KB of ints,
+#: Buckets the kernels' shared-memory histogram holds (48 KB of ints,
 #: the default dynamic shared-memory limit of a block).
 MAX_BUCKETS = 12288
 
@@ -38,12 +41,10 @@ def _salt_constant(salt: int) -> int:
     return _SALTS[salt % len(_SALTS)]
 
 
-def _hash_histogram_cuda(keys: torch.Tensor, valid: torch.Tensor,
-                         n_buckets: int, salt: int, block: int
-                         ) -> torch.Tensor:
-    """The CUDA kernel: (..., N) keys -> (..., n_blocks, n_buckets)
-    int32.  Raises on anything the kernel does not take — it never
-    falls back to the plain version."""
+def _check_cuda_inputs(keys: torch.Tensor, valid: torch.Tensor,
+                       n_buckets: int) -> None:
+    """Raise on anything the kernels do not take — they never fall back
+    to the plain version."""
     if not (keys.is_cuda and valid.is_cuda):
         raise ValueError("hash_histogram kernel needs CUDA tensors")
     if keys.device != valid.device:
@@ -60,11 +61,22 @@ def _hash_histogram_cuda(keys: torch.Tensor, valid: torch.Tensor,
     if not 1 <= n_buckets <= MAX_BUCKETS:
         raise ValueError(f"hash_histogram kernel takes 1..{MAX_BUCKETS} "
                          f"buckets, got {n_buckets}")
+    if keys.numel() // max(keys.shape[-1], 1) > 65535:
+        raise ValueError(f"hash_histogram kernel takes at most 65535 rows, "
+                         f"got {tuple(keys.shape[:-1])}")
+
+
+def _hash_histogram_cuda(keys: torch.Tensor, valid: torch.Tensor,
+                         n_buckets: int, salt: int, block: int
+                         ) -> torch.Tensor:
+    """The per-block kernel: (..., N) keys -> (..., n_blocks, n_buckets)
+    int32."""
+    _check_cuda_inputs(keys, valid, n_buckets)
     n = keys.shape[-1]
     b = ref.histogram_block(n, block)
     n_blocks = -(-n // b)
     batch = keys.numel() // n if n else 0
-    if batch > 65535 or n_blocks >= 2 ** 31:
+    if n_blocks >= 2 ** 31:
         raise ValueError(f"hash_histogram kernel grid too large: {batch} "
                          f"rows x {n_blocks} blocks")
     out = torch.empty(*keys.shape[:-1], n_blocks, n_buckets,
@@ -76,6 +88,30 @@ def _hash_histogram_cuda(keys: torch.Tensor, valid: torch.Tensor,
         else lib.hash_histogram_i64
     rc = fn(keys.data_ptr(), valid.data_ptr(), out.data_ptr(), batch, n, b,
             n_blocks, n_buckets, _salt_constant(salt),
+            torch.cuda.current_stream(keys.device).cuda_stream)
+    _build.check(lib, "hash_histogram", rc)
+    _build.LAUNCHES["hash_histogram"] += 1
+    return out
+
+
+def _bucket_counts_cuda(keys: torch.Tensor, valid: torch.Tensor,
+                        n_buckets: int, salt: int) -> torch.Tensor:
+    """The totals kernel: (..., N) keys -> (..., n_buckets) int32 in one
+    launch (the C side zeroes the output first where several CTAs add
+    into one row)."""
+    _check_cuda_inputs(keys, valid, n_buckets)
+    n = keys.shape[-1]
+    batch = keys.numel() // n if n else 0
+    if batch == 0:                      # nothing to count: no launch
+        return torch.zeros(*keys.shape[:-1], n_buckets, dtype=torch.int32,
+                           device=keys.device)
+    out = torch.empty(*keys.shape[:-1], n_buckets, dtype=torch.int32,
+                      device=keys.device)
+    lib = _build.library("hash_histogram")
+    fn = lib.bucket_counts_i32 if keys.dtype == torch.int32 \
+        else lib.bucket_counts_i64
+    rc = fn(keys.data_ptr(), valid.data_ptr(), out.data_ptr(), batch, n,
+            n_buckets, _salt_constant(salt),
             torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check(lib, "hash_histogram", rc)
     _build.LAUNCHES["hash_histogram"] += 1
@@ -101,10 +137,13 @@ def bucket_counts(keys: torch.Tensor, valid: torch.Tensor, n_buckets: int,
                   backend: str = "auto") -> torch.Tensor:
     """Global bucket-load histogram of one map-phase shuffle hop:
     (..., N) -> (..., n_buckets) int32.  Its max is the most-loaded
-    reducer."""
-    hist = hash_histogram(keys, valid, n_buckets, salt=salt, block=block,
-                          backend=backend)
-    return hist.sum(-2, dtype=torch.int32)
+    reducer.  ``block`` shapes only the plain version's per-block
+    intermediate; the sums do not depend on it."""
+    if _build.resolve(backend, keys) == "ref":
+        return ref.hash_histogram(keys, valid, n_buckets, salt=salt,
+                                  block=block).sum(-2, dtype=torch.int32)
+    return _bucket_counts_cuda(keys.contiguous(), valid.contiguous(),
+                               n_buckets, salt)
 
 
 def partition_offsets(histogram: torch.Tensor) -> torch.Tensor:

@@ -351,6 +351,135 @@ def test_hash_histogram_kernel_matches_plain(cuda, dtype, batch, n,
                                              salt=salt, backend="ref"))
 
 
+PROBE_TILE = 256           # queries of a warp tile of csrc/probe_counts.cu
+I64_MAX = np.iinfo(np.int64).max
+
+
+def probe_once(q, k):
+    """The kernel's counts, held bit-equal to the plain version's, from
+    exactly one launch."""
+    before = ops.LAUNCHES["probe_counts"]
+    lo, hi = tfj.probe_counts(q, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["probe_counts"] == before + 1
+    lo_r, hi_r = tfj.probe_counts(q, k, backend="ref")
+    assert torch.equal(lo, lo_r) and torch.equal(hi, hi_r)
+
+
+def sorted_with_tail(rng, batch, n, n_live, domain, sentinel):
+    """Rows of ``n_live`` sorted draws from [0, domain) and a sentinel
+    tail: the fused join's key columns and queries."""
+    out = np.full((batch, n), sentinel, np.int64)
+    out[:, :n_live] = np.sort(rng.integers(0, domain, (batch, n_live)), -1)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", [
+    "all_sentinel", "sorted_tail", "tile_minus_1", "tile", "tile_plus_1",
+    "cta_plus_1", "unsorted_wide_window", "misaligned_view"])
+def test_probe_counts_tile_window_paths(cuda, dtype, case):
+    """Each path of the tile-window kernel: one-value tiles (the
+    sentinel tail, with live sentinel-valued keys), windows staged in
+    shared memory, windows past the shared-memory budget (unsorted
+    queries over 100,000 distinct keys), ragged tiles at the warp tile's
+    and the CTA's edges, rows and views that are not 16-byte aligned;
+    batch 3 throughout."""
+    rng = np.random.default_rng(len(case))
+    big = I32_MAX if dtype == torch.int32 else I64_MAX
+    batch, nr, n_live_r = 3, 20_000, 12_000
+    keys = sorted_with_tail(rng, batch, nr, n_live_r, 16_384, big)
+    keys[1, n_live_r - 40:n_live_r] = big          # live sentinel keys
+    nq, n_live_q = {"all_sentinel": (9_000, 0), "sorted_tail": (70_000, 5_000),
+                    "tile_minus_1": (PROBE_TILE - 1, 100),
+                    "tile": (PROBE_TILE, 100),
+                    "tile_plus_1": (PROBE_TILE + 1, PROBE_TILE + 1),
+                    "cta_plus_1": (8 * PROBE_TILE + 1, 700),
+                    "unsorted_wide_window": (50_000, 50_000),
+                    "misaligned_view": (30_001, 4_000)}[case]
+    queries = sorted_with_tail(rng, batch, nq, n_live_q, 16_500, big)
+    if case == "unsorted_wide_window":
+        nr = 150_000
+        keys = np.sort(rng.permutation(10 ** 6)[:batch * nr]
+                       .reshape(batch, nr), -1)
+        queries = rng.integers(-5, 10 ** 6 + 5, (batch, nq))
+        queries[:, ::11] = big
+    k = torch.as_tensor(keys, device=cuda).to(dtype)
+    q = torch.as_tensor(queries, device=cuda).to(dtype)
+    if case == "misaligned_view":
+        flat = torch.empty(batch * nq + 1, dtype=dtype, device=cuda)
+        q = flat[1:].view(batch, nq)
+        q.copy_(torch.as_tensor(queries, device=cuda).to(dtype))
+        assert q.data_ptr() % 16 != 0
+    probe_once(q, k)
+
+
+@pytest.mark.cuda
+def test_probe_counts_int64_keys_above_2_32(cuda):
+    """int64 keys and queries above 2^32, at INT64_MAX and around it,
+    sorted and unsorted, batch 2."""
+    rng = np.random.default_rng(64)
+    base = np.int64(1) << 40
+    keys = np.sort(base + rng.integers(0, 1 << 34, (2, 9_000)), -1)
+    keys[:, -100:] = I64_MAX
+    queries = sorted_with_tail(rng, 2, 40_000, 6_000, 1 << 34, I64_MAX)
+    queries[:, :6_000] += base
+    queries[1, 6_000:7_000] = I64_MAX - 1
+    queries[1] = np.sort(queries[1])
+    k = torch.as_tensor(keys, device=cuda)
+    probe_once(torch.as_tensor(queries, device=cuda), k)
+    probe_once(torch.as_tensor(rng.permutation(queries.T).T.copy(),
+                               device=cuda), k)
+
+
+def bucket_counts_once(keys, valid, n_buckets, salt=0):
+    """``bucket_counts`` from exactly one launch, equal as integers to
+    the plain version (``ref.hash_histogram`` summed over blocks)."""
+    before = ops.LAUNCHES["hash_histogram"]
+    got = thp.bucket_counts(keys, valid, n_buckets, salt=salt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["hash_histogram"] == before + 1
+    want = thp.bucket_counts(keys, valid, n_buckets, salt=salt,
+                             backend="ref")
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_buckets", [1, 4, 16, 130, 4096, 12288])
+def test_bucket_counts_kernel_matches_plain(cuda, dtype, n_buckets):
+    """The one-launch totals kernel on one CTA a row (stored directly)
+    and on many (atomics onto the zeroed output): a mask with a live
+    prefix, a random mask, an all-false mask, n not a multiple of 16, a
+    mask view whose base is not 16-byte aligned; and the per-block
+    ``hash_histogram`` on the same inputs."""
+    rng = np.random.default_rng(n_buckets)
+    hi = 1 << 31 if dtype == torch.int32 else 1 << 62
+    for batch, n in ((3, 1_007), (4, 200_003)):
+        keys = torch.as_tensor(rng.integers(-hi, hi, (batch, n)),
+                               device=cuda).to(dtype)
+        prefix = torch.arange(n, device=cuda).expand(batch, n) < n // 3
+        random = torch.as_tensor(rng.random((batch, n)) < 0.6, device=cuda)
+        none = torch.zeros(batch, n, dtype=torch.bool, device=cuda)
+        flat = torch.empty(batch * n + 3, dtype=torch.bool, device=cuda)
+        shifted = flat[3:].view(batch, n)
+        shifted.copy_(random)
+        assert shifted.data_ptr() % 16 != 0
+        for salt, valid in enumerate((prefix, random, none, shifted)):
+            got = bucket_counts_once(keys, valid, n_buckets, salt=salt)
+            if valid is none:
+                assert int(got.abs().sum()) == 0
+        before = ops.LAUNCHES["hash_histogram"]
+        per_block = thp.hash_histogram(keys, shifted, n_buckets, salt=1)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["hash_histogram"] == before + 1
+        want = thp.hash_histogram(keys, shifted, n_buckets, salt=1,
+                                  backend="ref")
+        assert per_block.shape == want.shape and torch.equal(per_block, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
