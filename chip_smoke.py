@@ -52,6 +52,30 @@ Phases, each failing the run on any error:
    ``max_bucket_load`` (1,3J: equal to a recount of the edge lists on
    the host).  The kernel launch counts are set to 0 just before each
    run and read just after.
+3b. The same eight runs compiled: ``jit_execute_chain`` captures each
+   plan as one CUDA graph (one pool for all), then ``REPLAYS`` replays,
+   each equal to an eager run of the plan array for array (output,
+   stats, overflow); logged: capture ms, the replays' median beside the
+   eager ms, the graph pool's bytes.  A replay runs no Python, so its
+   launches are read from the device trace of one more replay
+   (``ops.traced_launches``) and held to the eager run's; the trace of
+   an eager run is held to the wrappers' counts first, so both count in
+   one unit.  Then the caches are cleared and the pool returned.
+3c. Serving through ``QueryEngine(QueryServeConfig(k=16))``, once with
+   each reduce-side join: A³ (the planner's 2,3JA) and the triangle
+   query (cascade along (0, 1, 2)) solo, one cold and ``SERVE_WARM``
+   warm submissions each (every warm one a cache hit; results equal to
+   A³ and to trace(A³), the closed 3-walks the triangle query counts,
+   measured equal to the cost model; cold ms, warm p50 and p99 logged),
+   then ``SERVE_TENANTS`` R-MAT seeds' triangle queries in one
+   ``submit_many`` (exactly one execution; each lane exact on its own
+   statistics and equal to its own solo submission).  One more warm
+   submission of each and one more batch run under the device trace:
+   their launches, held to the cold submission's (its eager warm-up;
+   capture launches nothing).  Each request's bytes are reckoned from its
+   caps first (the bytes a slot of its strategy took in phase 3), and
+   its scale is cut, with a line saying so, while they do not fit
+   beside the graph pool.
 4. The skew path at full size: ``zipf_edges(131072, 8192, 1.0)`` as all
    three relations at k = 256, ``detect_chain_skew`` then
    ``shares_skew_chain`` (``measure_skew=True``) for enumeration
@@ -115,6 +139,15 @@ RUNS = (
 )
 
 FUSED_TWINS = {r[0] for r in RUNS if r[3] == "fused"}
+
+# Phase 3b: replays per compiled run.  Phase 3c: warm submissions per
+# solo query, tenants in the batch, the triangle's join order, and the
+# device bytes kept free beside a reckoned request.
+REPLAYS = 5
+SERVE_WARM = 20
+SERVE_TENANTS = 4
+SERVE_ORDER = (0, 1, 2)
+SERVE_MARGIN = 8 << 30
 
 KERNELS = {
     "segment_sum": dict(source="src/repro_torch/csrc/segment_sum.cu",
@@ -284,15 +317,18 @@ def host_hop_load(w: Workload, query) -> float:
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def run_main_path(w: Workload, device: torch.device) -> dict:
+def run_main_path(w: Workload, device: torch.device) -> tuple[dict, dict]:
     """Every strategy through ``execute_chain``; returns the launches
-    per kernel summed over the runs."""
+    per kernel summed over the runs, and each strategy's peak bytes per
+    slot of its largest per-device buffer (what phase 3c reckons a
+    request's bytes from)."""
     from repro_torch.core import ChainQuery, SimGrid, chain_edge_inputs
     from repro_torch.core import execute_chain
     from repro_torch.kernels import ops
 
     on_gpu = device.type == "cuda"
     launches = {name: 0 for name in ops.LAUNCHES}
+    per_slot: dict = {}
     staged = {}
     unmeasured = {}
     # A warm-up of the first run, outside the table: the first
@@ -368,6 +404,8 @@ def run_main_path(w: Workload, device: torch.device) -> dict:
                       f"{name} {impl}: the {kname} kernel was never launched")
         for kname, c in counts.items():
             launches[kname] += c
+        per_slot[strategy] = max(per_slot.get(strategy, 0.0),
+                                 peak / largest_slots(w.caps, GRID))
 
         # The fused run must equal its sort_merge twin bit for bit; the
         # twin's result waits on the host, out of the peak-memory count.
@@ -385,6 +423,418 @@ def run_main_path(w: Workload, device: torch.device) -> dict:
             f"groups={groups} read={read:.0f} shuffled={shuffled:.0f} "
             f"total={total:.0f} analytic={want:.0f}{skew} "
             f"wall_ms={wall_ms:.1f} peak_bytes={peak} launches={counts}")
+    return launches, per_slot
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the main path compiled (one CUDA graph per plan)
+# ---------------------------------------------------------------------------
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def largest_slots(caps, grid_shape, lanes: int = 1) -> int:
+    """Slots of a plan's largest per-device buffer, over the grid and
+    the lanes: the unit a run's device bytes are reckoned in."""
+    return lanes * math.prod(grid_shape) * max(
+        v for v in dataclasses.astuple(caps) if v)
+
+
+def graph_pool_bytes() -> int:
+    """Device bytes held by private memory pools (the executor's one
+    CUDA-graph pool is the only one here)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def memory_line(device: torch.device) -> str:
+    if device.type != "cuda":
+        return "pool_bytes=0 reserved_bytes=0 (cpu)"
+    return (f"pool_bytes={graph_pool_bytes()} "
+            f"reserved_bytes={torch.cuda.memory_reserved()} "
+            f"max_reserved_bytes={torch.cuda.max_memory_reserved()}")
+
+
+def traced_launches(fn, device: torch.device):
+    """``(fn(), launches per kernel)`` from the device trace
+    (``ops.traced_launches``); on the CPU (a rehearsal) no kernel runs,
+    and every count is 0."""
+    from repro_torch.kernels import ops
+    if device.type != "cuda":
+        return fn(), {name: 0 for name in ops.LAUNCHES}
+    return ops.traced_launches(fn)
+
+
+def same_relation(a, b) -> bool:
+    """Every column and the mask equal, padding and row order included."""
+    return (torch.equal(a.valid, b.valid) and sorted(a.cols) == sorted(b.cols)
+            and all(torch.equal(c, b.cols[n]) for n, c in a.cols.items()))
+
+
+def same_result(got, want) -> bool:
+    """Output relation, every stat and the overflow flag equal, array
+    for array."""
+    (out, stats, ovf), (w_out, w_stats, w_ovf) = got, want
+    return (same_relation(out, w_out)
+            and sorted(stats) == sorted(w_stats)
+            and all(torch.equal(v, w_stats[k]) for k, v in stats.items())
+            and torch.equal(ovf, w_ovf))
+
+
+def run_compiled_path(w: Workload, device: torch.device) -> dict:
+    """Every main-path run through ``jit_execute_chain``: the first call
+    warms up, captures and replays, then ``REPLAYS`` replays, each equal
+    to an eager run of the same plan array for array, and one traced
+    replay that launches on the card what the eager run launched.
+    Returns the traced replays' launches per kernel."""
+    from repro_torch.core import (ChainQuery, SimGrid, chain_edge_inputs,
+                                  clear_compiled_caches, execute_chain,
+                                  jit_execute_chain)
+    from repro_torch.kernels import ops
+
+    on_gpu = device.type == "cuda"
+    launches = {name: 0 for name in ops.LAUNCHES}
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+    for name, aggregate, strategy, impl, measure in RUNS:
+        label = f"{impl}{' measure_skew' if measure else ''}"
+        query = ChainQuery.three_way(aggregate=aggregate)
+        rels = chain_edge_inputs(query, w.edges, GRID, device=device)
+        kw = dict(strategy=strategy, caps=w.caps, join_impl=impl,
+                  measure_skew=measure)
+        sync(device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eager = execute_chain(SimGrid(GRID), query, rels, **kw)
+        sync(device)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        per_run = dict(ops.LAUNCHES)
+        check(not bool(eager[2]), f"compiled {name} {label}: overflow")
+        # The device trace counts in the wrappers' unit: one launch of a
+        # kernel's first device function a wrapper call.
+        traced = traced_launches(      # its output dropped at once
+            lambda: execute_chain(SimGrid(GRID), query, rels, **kw), device)[1]
+        check(traced == per_run, f"compiled {name} {label}: traced eager "
+                                 f"launches {traced} != counted {per_run}")
+        if on_gpu:
+            torch.cuda.empty_cache()   # the eager runs' cache, before capture
+        run = jit_execute_chain(SimGrid(GRID), query, donate=False, **kw)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        first = run(rels)
+        sync(device)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        check(dict(ops.LAUNCHES) == per_run,
+              f"compiled {name} {label}: warm-up launches "
+              f"{dict(ops.LAUNCHES)} != eager {per_run}")
+        check(same_result(first, eager),
+              f"compiled {name} {label}: first call differs from eager")
+        del first
+        replay_ms = []
+        for _ in range(REPLAYS):
+            t0 = time.perf_counter()
+            got = run(rels)
+            sync(device)
+            replay_ms.append((time.perf_counter() - t0) * 1e3)
+            check(same_result(got, eager),
+                  f"compiled {name} {label}: replay differs from eager")
+            del got
+        got, traced = traced_launches(lambda: run(rels), device)
+        check(same_result(got, eager),
+              f"compiled {name} {label}: traced replay differs from eager")
+        check(traced == per_run, f"compiled {name} {label}: replay "
+                                 f"launched {traced} != eager {per_run}")
+        del got
+        for kname, c in traced.items():
+            launches[kname] += c
+        expect = {"segment_sum": aggregate, "probe_counts": impl == "fused",
+                  "hash_histogram": measure}
+        for kname, used in expect.items():
+            check(traced[kname] > 0 or not used or not on_gpu,
+                  f"compiled {name} {label}: the {kname} kernel was "
+                  f"never launched in a replay")
+        log(f"compiled {name:6s} {label:10s} ok: capture_ms={capture_ms:.1f} "
+            f"(warm-up + capture + replay) replay_ms={statistics.median(replay_ms):.1f} "
+            f"(median of {REPLAYS}; {min(replay_ms):.1f}..{max(replay_ms):.1f}) "
+            f"eager_ms={eager_ms:.1f} {memory_line(device)} "
+            f"launches_per_replay={traced} (traced)")
+        del eager, rels
+    clear_compiled_caches()
+    if on_gpu:
+        torch.cuda.empty_cache()
+    log(f"compiled path: caches cleared, {memory_line(device)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: serving (QueryEngine)
+# ---------------------------------------------------------------------------
+
+def a3_query_stats(w: Workload):
+    """Exact ``QueryStats`` of the aggregated three-way chain along its
+    order (0, 1, 2), from the chain statistics and A³ on the host (the
+    engine plans a chain with ``stats.chain``)."""
+    from repro_torch.core import QueryStats
+    st = w.stats
+    j1, j3 = st.prefix_joins[0], st.prefix_joins[-1]
+    return QueryStats(sizes=tuple(st.sizes), orders=(SERVE_ORDER,),
+                      intermediates=((j1, j3),), hop_joins=((j1, j3),),
+                      agg_groups=float(len(w.a3_keys)), chain=st)
+
+
+def triangle_stats(src, dst, n_nodes: int):
+    """Exact ``QueryStats`` of ``JoinQuery.triangle()`` along (0, 1, 2)
+    and what the query counts: trace(A³), the closed 3-walks (self-loops
+    and multi-edges included; the repo's ``oracle_triangles`` is this
+    over 3), from ``scipy.sparse``
+    (``query_stats_exact`` simulates every order in Python: too slow at
+    scale 14).  Hop 1 joins on b (2-paths), hop 2 on c (3-paths, before
+    the closing filter a = a'), leaving the closed ones."""
+    import scipy.sparse as sp
+    from repro_torch.core import QueryStats
+    adj = sp.csr_matrix((np.ones(len(src)), (src, dst)),
+                        shape=(n_nodes, n_nodes))
+    a2 = adj @ adj
+    a3 = a2 @ adj
+    j1, raw2, closed = (float(a2.sum()), float(a3.sum()),
+                        float(a3.diagonal().sum()))
+    m = float(len(src))
+    stats = QueryStats(sizes=(m, m, m), orders=(SERVE_ORDER,),
+                       intermediates=((j1, closed),),
+                       hop_joins=((j1, raw2),), agg_groups=None, chain=None)
+    return stats, closed
+
+
+def serve_caps(query, stats):
+    """The caps the engine derives for a plan on (K,): power-of-two
+    quantized ``default_query_caps``."""
+    from repro_torch.core import ChainCaps, default_query_caps
+    from repro_torch.serving import QueryServeConfig
+    caps = default_query_caps(query, stats, (K,),
+                              slack=QueryServeConfig().caps_slack)
+    pow2 = {f: (None if v is None else 1 << (int(v) - 1).bit_length())
+            for f, v in dataclasses.asdict(caps).items()}
+    return ChainCaps(**pow2)
+
+
+def fits(need: float, device: torch.device) -> tuple[bool, float]:
+    """Whether ``need`` bytes fit in the card beside what is reserved
+    now (the graph pool included), with ``SERVE_MARGIN`` to spare."""
+    if device.type != "cuda":
+        return True, float("inf")
+    torch.cuda.empty_cache()
+    free = (torch.cuda.get_device_properties(device).total_memory
+            - torch.cuda.memory_reserved(device))
+    return need + SERVE_MARGIN <= free, free
+
+
+def serve_repeated(eng, label: str, query, tables, stats, check_result,
+                   device: torch.device, **opts) -> tuple[dict, dict]:
+    """One cold submission, then ``SERVE_WARM`` warm ones, each a cache
+    hit, and one more under the device trace; the cold, last and traced
+    results checked by ``check_result``.  Returns the timings and the
+    traced submission's launches, held to the cold one's (its eager
+    warm-up; the capture launches nothing)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    cold = eng.submit(query, tables, stats=stats, **opts)
+    cold_launches = dict(ops.LAUNCHES)
+    check(cold.ok and not cold.cache_hit,
+          f"serve {label}: cold submission: ok={cold.ok} hit="
+          f"{cold.cache_hit} {cold.error}")
+    check_result(cold)
+    warm_ms = []
+    for _ in range(SERVE_WARM):
+        res = eng.submit(query, tables, stats=stats, **opts)
+        check(res.ok and res.cache_hit,
+              f"serve {label}: warm submission missed or failed: {res.error}")
+        check(res.measured == cold.measured,
+              f"serve {label}: warm stats {res.measured} != cold")
+        warm_ms.append(res.latency_ms)
+    check_result(res)
+    res, traced = traced_launches(
+        lambda: eng.submit(query, tables, stats=stats, **opts), device)
+    check(res.ok and res.cache_hit and res.measured == cold.measured,
+          f"serve {label}: traced warm submission: {res.error}")
+    check_result(res)
+    check(traced == cold_launches,
+          f"serve {label}: a warm submission launched {traced} != the "
+          f"cold one's {cold_launches}")
+    return dict(cold_ms=cold.latency_ms,
+                warm_p50_ms=float(np.percentile(warm_ms, 50)),
+                warm_p99_ms=float(np.percentile(warm_ms, 99)),
+                plan=f"{cold.plan.algorithm} {cold.plan.grid_shape}",
+                measured=cold.measured, launches=traced), traced
+
+
+def fitting_scale(label: str, top: int, reckon, device: torch.device):
+    """The largest scale from ``top`` down whose reckoned bytes fit
+    beside the graph pool; ``reckon(scale) -> (bytes, payload)``.
+    Returns ``(scale, payload)`` and logs every cut."""
+    scale = top
+    while True:
+        need, payload = reckon(scale)
+        ok, free = fits(need, device)
+        if ok:
+            return scale, payload
+        log(f"serve {label}: scale {scale} reckoned {need:.0f} bytes, "
+            f"{free:.0f} free beside the pool: cut to scale {scale - 1}")
+        scale -= 1
+
+
+def serve_round(w: Workload, per_slot: dict, impl: str,
+                device: torch.device) -> dict:
+    """One engine (``join_impl=impl``): the aggregated chain and the
+    triangle query solo (the triangle's bytes reckoned beside the
+    chain's graph), then ``SERVE_TENANTS`` tenants' triangle queries in
+    one batch on an emptied graph pool, each lane held to its own solo
+    submission.  Returns the launches of the traced submissions (one
+    warm submission of each solo query, one warm batch) per kernel."""
+    from repro_torch.core import (ChainQuery, JoinQuery, clear_compiled_caches,
+                                  cost_query_cascade)
+    from repro_torch.data.graphs import DATASETS, rmat_edges
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (QueryEngine, QueryRequest,
+                                     QueryServeConfig, weighted_total)
+
+    eng = QueryEngine(QueryServeConfig(k=K, join_impl=impl), device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    top = int(math.log2(w.n_nodes))
+    a3q, tq = ChainQuery.three_way(aggregate=True), JoinQuery.triangle()
+
+    def edges(scale, seed=0):
+        if scale == top and seed == 0:
+            return w.edges[0]
+        return rmat_edges(dataclasses.replace(DATASETS["amazon"],
+                                              scale=scale), seed=seed)
+
+    def tenant(scale, seed):
+        src, dst = edges(scale, seed)
+        return ([(src, dst)] * 3,) + triangle_stats(src, dst, 1 << scale)
+
+    # A³: the planner's choice (2,3JA) over the main path's edges.
+    def reckon_a3(scale):
+        sw = w if scale == top else make_workload(scale, 0)
+        st = a3_query_stats(sw)
+        return (per_slot["cascade_pushdown"]
+                * largest_slots(serve_caps(a3q, st), (K,)), (sw, st))
+    scale, (sw, st) = fitting_scale(f"{impl} A^3", top, reckon_a3, device)
+
+    def check_a3(res):
+        total = res.measured["total"]
+        want = analytic("2,3JA", sw.stats)
+        check(total == want, f"serve A^3: measured {total} != {want}")
+        check_against_a3(sw, res.output, True)
+    a3, counts = serve_repeated(eng, f"{impl} A^3", a3q, sw.edges, st,
+                                check_a3, device)
+    log(f"serve {impl:10s} A^3 (scale {scale}) ok: {a3} "
+        f"{memory_line(device)}")
+
+    # Triangles: the serving sweep's query, cascade along (0, 1, 2),
+    # beside A³'s graph.
+    def reckon_triangles(scale):
+        t = tenant(scale, 0)
+        return per_slot["cascade"] * largest_slots(serve_caps(tq, t[1]),
+                                                   (K,)), t
+
+    def check_triangles(res, st, walks):
+        count = weighted_total(tq, res.output)
+        check(count == walks, f"serve triangles: {count} closed 3-walks "
+                              f"!= host trace(A^3) {walks}")
+        want = cost_query_cascade(list(st.sizes), st.intermediates[0])
+        check(res.measured["total"] == want,
+              f"serve triangles: measured {res.measured['total']} != {want}")
+    scale, (tables, st, walks) = fitting_scale(f"{impl} triangles", top,
+                                               reckon_triangles, device)
+    tri_res, traced = serve_repeated(
+        eng, f"{impl} triangles", tq, tables, st,
+        lambda res: check_triangles(res, st, walks), device,
+        strategy="cascade", join_order=SERVE_ORDER)
+    counts = {k: c + traced[k] for k, c in counts.items()}
+    log(f"serve {impl:10s} triangles (scale {scale}) ok: closed_3walks="
+        f"{walks:.0f} {tri_res} {memory_line(device)}")
+
+    # The batch: the largest scale at which the tenants' lanes, and one
+    # tenant's solo graph beside them, fit in the card, the solo
+    # queries' graphs dropped first.
+    clear_compiled_caches()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"serve {impl:10s} solo graphs dropped: {memory_line(device)}")
+
+    def reckon_batch(scale):
+        tenants = [tenant(scale, t) for t in range(SERVE_TENANTS)]
+        caps = [serve_caps(tq, st_t) for _, st_t, _ in tenants]
+        caps = dataclasses.replace(caps[0], **{
+            f: max(getattr(c, f) for c in caps)
+            for f in ("recv", "mid", "out", "local", "agg", "join")})
+        return (per_slot["cascade"] * largest_slots(
+            caps, (K,), lanes=SERVE_TENANTS + 1), (tenants, caps))
+    scale, (tenants, caps) = fitting_scale(f"{impl} batch", top,
+                                           reckon_batch, device)
+    width = max(len(tables[0][0]) for tables, _, _ in tenants)
+    kw = dict(caps=caps, strategy="cascade", join_order=SERVE_ORDER,
+              capacities=[width] * 3)
+    reqs = [QueryRequest(tq, tables, stats=st_t, **kw)
+            for tables, st_t, _ in tenants]
+    before = eng.stats.batches
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.submit_many(reqs)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    cold_launches = dict(ops.LAUNCHES)
+    check(eng.stats.batches == before + 1,
+          f"serve batch: {eng.stats.batches - before} executions, want 1")
+    # The warm batch, traced: one replay of the laned graph.
+    again, traced = traced_launches(lambda: eng.submit_many(reqs), device)
+    check(eng.stats.batches == before + 2 and all(r.cache_hit for r in again),
+          "serve batch: the warm batch was not one execution of cached plans")
+    check(traced == cold_launches, f"serve batch: the warm batch launched "
+                                   f"{traced} != the cold one's {cold_launches}")
+    counts = {k: c + traced[k] for k, c in counts.items()}
+    for t, (res, warm, (tables, st_t, walks_t)) in enumerate(
+            zip(results, again, tenants)):
+        check(res.ok and warm.ok, f"serve batch lane {t}: {res.error} "
+                                  f"{warm.error}")
+        check_triangles(res, st_t, walks_t)
+        solo = eng.submit(tq, tables, stats=st_t, **kw)
+        check(solo.ok and solo.cache_hit,
+              f"serve batch lane {t}: solo {solo.error} hit={solo.cache_hit}")
+        check(solo.measured == res.measured == warm.measured
+              and same_relation(solo.output, res.output)
+              and same_relation(solo.output, warm.output),
+              f"serve batch lane {t}: differs from its solo submission")
+    log(f"serve {impl:10s} batch (scale {scale}) ok: {SERVE_TENANTS} tenants "
+        f"in 1 execution, batch_ms={batch_ms:.1f} closed_3walks="
+        f"{[t[2] for t in tenants]} launches={traced} (traced warm batch) "
+        f"{memory_line(device)}")
+    if device.type == "cuda":
+        for kname, used in (("segment_sum", True),
+                            ("probe_counts", impl == "fused")):
+            check(counts[kname] > 0 or not used,
+                  f"serve {impl}: the {kname} kernel was never launched")
+    clear_compiled_caches()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    snap = eng.stats.snapshot()
+    log(f"serve {impl:10s} ok: launches={counts} (traced) hits="
+        f"{snap['cache_hits']:.0f} misses={snap['cache_misses']:.0f} "
+        f"batches={snap['batches']:.0f} errors={snap['errors']:.0f}; caches "
+        f"cleared, {memory_line(device)}")
+    return counts
+
+
+def run_serving(w: Workload, per_slot: dict, device: torch.device) -> dict:
+    """Phase 3c with each reduce-side join; returns the traced
+    launches."""
+    launches: dict = {}
+    for impl in ("sort_merge", "fused"):
+        for kname, c in serve_round(w, per_slot, impl, device).items():
+            launches[kname] = launches.get(kname, 0) + c
     return launches
 
 
@@ -1079,8 +1529,9 @@ def main(argv=None) -> int:
               "hash_histogram": hash_histogram_phase(w, gen, args.iters, dev),
               "flash_attention": flash_attention_phase(gen, args.iters, dev)}
 
-    launches = run_main_path(w, dev)
-    for counts in (run_shares_skew(skew, dev), run_attention_entry(dev)):
+    launches, per_slot = run_main_path(w, dev)
+    for counts in (run_compiled_path(w, dev), run_serving(w, per_slot, dev),
+                   run_shares_skew(skew, dev), run_attention_entry(dev)):
         for name, c in counts.items():
             launches[name] += c
     if args.profile is not None:

@@ -65,3 +65,15 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+#: Largest flat pair index the all-pairs join oracle can form in int32
+#: arithmetic — ``nl * nr`` must stay below this (the JAX package's
+#: limit; ``local.local_join_allpairs`` enforces it, the plan verifier
+#: checks plans against it).
+INT32_PAIR_LIMIT = 2 ** 31
+
+#: Exclusive upper bound on sort-merge output capacities (the JAX
+#: package's int32 position arithmetic needs out_capacity < 2**30 - 1;
+#: the port keeps it so both packages accept the same capacities).
+SORT_MERGE_MAX_CAP = 2 ** 30 - 1

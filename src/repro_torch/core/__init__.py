@@ -11,7 +11,10 @@ Public API of this slice, by layer:
     JoinQuery, QueryAggregate, ChainQuery, ChainAggregate
 
   Physical executor
-    execute_chain / execute_query, one_round_chain / one_round_query,
+    execute_chain / execute_query, jit_execute_chain /
+    jit_execute_query (the whole plan as one cached executable, a CUDA
+    graph on the GPU), clear_compiled_caches,
+    one_round_chain / one_round_query,
     cascade_chain / cascade_query, shares_skew_chain, two_way_join,
     distributed_groupby_sum, project_product,
     chain_edge_inputs / query_table_inputs / scatter_to_grid,
@@ -25,6 +28,10 @@ Public API of this slice, by layer:
   Statistics, cost model, planner (copies of the JAX package's)
     ChainStats, chain_stats_exact, plan_chain, plan_query, ...
 
+  Partition manifests (the host half of the partitioned store)
+    PartitionSpec, co_partitioned, chain_partitioning,
+    default_part_capacity
+
   Skew layer
     heavy_hitters, chain_key_sketch, detect_chain_skew,
     SkewSplitPlan, SkewCombo, balance_threshold
@@ -37,21 +44,25 @@ from .relation import Relation, concat, flatten_leading
 from .shuffle import Grid, SimGrid, broadcast_along, shuffle_by_bucket
 from .plan import ChainAggregate, ChainQuery, JoinQuery, QueryAggregate
 from .two_way import two_way_join
-from .executor import (ChainCaps, cascade_chain, cascade_query,
-                       chain_edge_inputs, default_chain_caps,
-                       default_mapside_caps, default_query_caps,
-                       execute_chain, execute_query, one_round_chain,
+from .executor import (ChainCaps, CompiledPlan, cascade_chain, cascade_query,
+                       chain_edge_inputs, clear_compiled_caches,
+                       default_chain_caps, default_mapside_caps,
+                       default_query_caps, execute_chain, execute_query,
+                       jit_execute_chain, jit_execute_query, one_round_chain,
                        one_round_query, query_table_inputs, scatter_to_grid,
                        shares_skew_chain)
 from .local import (fused_sort_merge_join, groupby_sum, groupby_sum_multipass,
                     local_join, local_join_allpairs, sort_merge_join,
                     sort_rows)
 from .aggregation import distributed_groupby_sum, project_product
-from .cost_model import (ChainStats, JoinStats, QueryStats, balance_threshold,
-                         chain_replications, cost_chain_cascade,
-                         cost_chain_cascade_pushdown, cost_chain_one_round,
-                         cost_chain_one_round_agg, cost_chain_shares_skew,
+from .cost_model import (ChainPartitioning, ChainStats, JoinStats, QueryStats,
+                         balance_threshold, chain_replications,
+                         cost_chain_cascade, cost_chain_cascade_pushdown,
+                         cost_chain_one_round, cost_chain_one_round_agg,
+                         cost_chain_shares_skew, cost_query_cascade,
                          integer_shares, skew_clamped_shape)
+from .partition import (PartitionSpec, chain_partitioning, co_partitioned,
+                        default_part_capacity)
 from .planner import (ChainPlan, Plan, QueryPlan, chain_stats_exact,
                       crossover_reducers_chain, plan_chain, plan_query,
                       plan_three_way, query_stats_exact, self_join_stats,
@@ -64,7 +75,9 @@ __all__ = [
     "Relation", "concat", "flatten_leading",
     "Grid", "SimGrid", "broadcast_along", "shuffle_by_bucket",
     "JoinQuery", "QueryAggregate", "ChainQuery", "ChainAggregate",
-    "ChainCaps", "execute_chain", "execute_query", "one_round_chain",
+    "ChainCaps", "CompiledPlan", "execute_chain", "execute_query",
+    "jit_execute_chain", "jit_execute_query", "clear_compiled_caches",
+    "one_round_chain",
     "one_round_query", "cascade_chain", "cascade_query", "shares_skew_chain",
     "two_way_join",
     "distributed_groupby_sum", "project_product",
@@ -73,10 +86,14 @@ __all__ = [
     "sort_merge_join", "fused_sort_merge_join", "groupby_sum",
     "groupby_sum_multipass", "local_join", "local_join_allpairs",
     "sort_rows",
-    "ChainStats", "JoinStats", "QueryStats", "balance_threshold",
+    "ChainPartitioning", "ChainStats", "JoinStats", "QueryStats",
+    "balance_threshold",
     "chain_replications", "cost_chain_cascade", "cost_chain_cascade_pushdown",
     "cost_chain_one_round", "cost_chain_one_round_agg",
-    "cost_chain_shares_skew", "integer_shares", "skew_clamped_shape",
+    "cost_chain_shares_skew", "cost_query_cascade", "integer_shares",
+    "skew_clamped_shape",
+    "PartitionSpec", "co_partitioned", "chain_partitioning",
+    "default_part_capacity",
     "ChainPlan", "Plan", "QueryPlan", "chain_stats_exact",
     "crossover_reducers_chain", "plan_chain", "plan_query", "plan_three_way",
     "query_stats_exact", "self_join_stats", "self_join_stats_exact",

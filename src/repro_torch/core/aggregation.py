@@ -31,7 +31,8 @@ def distributed_groupby_sum(grid: Grid, rel: Relation, keys: Sequence[str],
     :func:`repro_torch.core.local.groupby_sum`."""
     keys = tuple(keys)
     n_in = grid.reduce_sum(rel.count())
-    overflow = torch.zeros((), dtype=torch.bool, device=rel.device)
+    overflow = torch.zeros(rel.valid.shape[:grid.lead], dtype=torch.bool,
+                           device=rel.device)
 
     cur = rel
     if local_combine:

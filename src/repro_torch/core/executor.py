@@ -12,7 +12,9 @@ Port of ``src/repro/core/executor.py`` for this slice:
   Shares sub-join per heavy/residual combination of the join
   attributes, each on the plain hypercube with its heavy dims clamped
   to share 1, driven by a :class:`~repro_torch.core.skew.SkewSplitPlan`;
-* :func:`execute_chain` / :func:`execute_query` — the entry points;
+* :func:`execute_chain` / :func:`execute_query` — the entry points, and
+  :func:`jit_execute_chain` / :func:`jit_execute_query` — the whole plan
+  as one cached executable (a CUDA graph on the GPU);
 * input placement (:func:`chain_edge_inputs`, :func:`query_table_inputs`)
   and capacity sizing (``default_*_caps``).
 
@@ -28,6 +30,8 @@ the map-side cascade are later slices and raise
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -90,8 +94,12 @@ def _count(grid: Grid, rel: Relation) -> torch.Tensor:
     return grid.reduce_sum(rel.count())
 
 
-def _false(rel: Relation) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.bool, device=rel.device)
+def _false(rel: Relation, lead: int = 0) -> torch.Tensor:
+    """An overflow flag before any reduction: a scalar, or one per lane
+    (``lead = grid.lead``), so a stat that lost its lane axis fails on
+    shape instead of standing for every lane."""
+    return torch.zeros(rel.valid.shape[:lead], dtype=torch.bool,
+                       device=rel.device)
 
 
 def _not_ported(what: str, item: str):
@@ -99,13 +107,19 @@ def _not_ported(what: str, item: str):
                                f"(ROADMAP {item})")
 
 
+def _mapside_not_ported():
+    return _not_ported("strategy 'mapside' (the partitioned store)", "A11")
+
+
 def _check_options(overlap_chunks: int) -> None:
     if overlap_chunks > 1:
         raise _not_ported("overlap_chunks > 1 (the overlapped shuffle)", "A9")
 
 
-def _zero(rel: Relation) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.float32, device=rel.device)
+def _zero(rel: Relation, lead: int = 0) -> torch.Tensor:
+    """A float32 counter before any reduction, shaped as :func:`_false`."""
+    return torch.zeros(rel.valid.shape[:lead], dtype=torch.float32,
+                       device=rel.device)
 
 
 def _hop_load(grid: Grid, rel: Relation, key: str, n_buckets: int,
@@ -113,9 +127,9 @@ def _hop_load(grid: Grid, rel: Relation, key: str, n_buckets: int,
     """Peak per-reducer load of one map-phase hop (the skew diagnostic):
     the global bucket histogram of this hop's hash — per-device
     ``bucket_counts`` (the ``hash_histogram`` kernel on a GPU) summed
-    over the grid — and its max, as float32."""
+    over the grid — and its max (per lane), as float32."""
     hist = bucket_counts(rel.col(key), rel.valid, n_buckets, salt=salt)
-    return grid.reduce_sum(hist).max().to(torch.float32)
+    return grid.reduce_sum(hist).amax(-1).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +157,8 @@ def place_relation(grid: Grid, query: JoinQuery, j: int, rel: Relation, *,
     route to the pinned dims (one shuffle hop per hashed dim), replicate
     over the rest.  Returns (placed shard, overflow, peak bucket load —
     0 unless ``measure_skew``)."""
-    overflow = _false(rel)
-    skew = _zero(rel)
+    overflow = _false(rel, grid.lead)
+    skew = _zero(rel, grid.lead)
     cur = rel
     hashed = query.hashed_dims(j)
     for d in hashed:                     # route to the pinned dims
@@ -211,11 +225,11 @@ def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                          f"grid, got shape {grid.shape}")
 
     read = sum(_count(grid, r) for r in rels)
-    overflow = _false(rels[0])
+    overflow = _false(rels[0], grid.lead)
     order = tuple(join_order) if join_order is not None \
         else query.default_join_order()
 
-    skew = _zero(rels[0])
+    skew = _zero(rels[0], grid.lead)
     placed: List[Relation] = []
     for j, rel in enumerate(rels):
         cur, ovf, sk = place_relation(grid, query, j, rel, caps=caps,
@@ -302,8 +316,8 @@ def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
     k_flat = int(np.prod(grid.shape, dtype=np.int64))
 
     all_stats: List[Stats] = []
-    overflow = _false(rels[0])
-    skew = _zero(rels[0])
+    overflow = _false(rels[0], grid.lead)
+    skew = _zero(rels[0], grid.lead)
     left = rels[order[0]]
     left_cap = None                       # None => first round uses caps.recv
     value_cols: List[str] = \
@@ -365,8 +379,8 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     k_flat = int(np.prod(grid.shape, dtype=np.int64))
 
     all_stats: List[Stats] = []
-    overflow = _false(rels[0])
-    skew = _zero(rels[0])
+    overflow = _false(rels[0], grid.lead)
+    skew = _zero(rels[0], grid.lead)
     left = rels[0]
     left_cap = None                       # None => first round uses caps.recv
     value_cols: List[str] = [query.values[0]] if query.values[0] else []
@@ -553,7 +567,8 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     ``probe_counts`` kernel) or the ``"all_pairs"`` oracle — identical
     tuple sets, stats and overflow flags.  ``measure_skew=True`` adds
     ``stats["max_bucket_load"]``.  Returns ``(result, stats,
-    overflow)``; everything stays on the inputs' device.
+    overflow)``; everything stays on the inputs' device.  On a laned
+    :class:`SimGrid` the stats and the flag are ``(lanes,)``.
 
     The skew-aware strategy ``"shares_skew"`` (1,NJS) cannot run on a
     single pre-scattered grid — its sub-joins each use their own clamped
@@ -562,7 +577,7 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     """
     _check_options(overlap_chunks)
     if strategy == "mapside":
-        raise _not_ported("strategy 'mapside' (the partitioned store)", "A11")
+        raise _mapside_not_ported()
     if strategy == "shares_skew":
         raise ValueError(
             "shares_skew runs per-combination grids; call "
@@ -623,6 +638,218 @@ def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
             "shares_skew_chain(query, flat_rels, plan, caps=...) with the "
             "SkewSplitPlan from repro_torch.core.skew.detect_chain_skew")
     raise ValueError(f"unknown strategy {strategy!r}")
+
+
+# ---------------------------------------------------------------------------
+# Whole-plan compilation: one executable per (plan, caps), a CUDA graph
+# on the GPU
+# ---------------------------------------------------------------------------
+
+#: Every live compiled executable, so :func:`clear_compiled_caches` can
+#: drop their graphs even where a caller (the query engine) still holds
+#: the executable itself.
+_LIVE: "weakref.WeakSet[CompiledPlan]" = weakref.WeakSet()
+
+#: One graph memory pool per CUDA device, shared by every captured plan.
+_POOLS: Dict[torch.device, tuple] = {}
+
+
+def _signature(rels: Sequence[Relation]) -> Tuple:
+    """What a captured graph is specific to: every column's (and the
+    mask's) shape and dtype, by name, and the device."""
+    return (rels[0].device,) + tuple(
+        tuple((n, tuple(c.shape), c.dtype) for n, c in sorted(r.cols.items()))
+        + ((tuple(r.valid.shape), r.valid.dtype),) for r in rels)
+
+
+class _Graph:
+    """One plan captured as a CUDA graph over static input buffers.
+
+    Capture runs the plan three times over: once eagerly on a side
+    stream (kernel libraries are built and loaded, and the kernels'
+    cached device queries filled, outside the capture), once under
+    capture, and once per later call as a replay.  A replay runs no
+    Python, so no wrapper counts its launches in ``_build.LAUNCHES``;
+    the device trace does (``kernels.ops.traced_launches``)."""
+
+    def __init__(self, fn, rels: Sequence[Relation]):
+        device = rels[0].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn(rels)
+        torch.cuda.current_stream(device).wait_stream(side)
+        # Static inputs live outside the graph pool, so no plan's
+        # intermediates can alias them.
+        self.inputs = [r.map(torch.clone) for r in rels]
+        pool = _POOLS.get(device)
+        if pool is None:
+            pool = _POOLS[device] = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph synchronizes and empties the allocator's
+        # cache first, which returns the warm-up's memory for the pool
+        # to grow into.
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.outputs = fn(self.inputs)
+
+    def replay(self, rels: Sequence[Relation]):
+        """Copy ``rels`` in, replay, and return clones of the outputs.
+
+        Every graph of a device shares one memory pool, so the cache
+        costs the largest graph's intermediates, not their sum.  That is
+        safe because replays run one at a time on one stream, the inputs
+        live outside the pool, and the outputs are cloned as soon as the
+        replay is enqueued: another graph's replay may reuse the static
+        outputs' memory only after these clones have been taken."""
+        for static, rel in zip(self.inputs, rels):
+            static.valid.copy_(rel.valid)
+            for n, c in static.cols.items():
+                c.copy_(rel.cols[n])
+        self.graph.replay()
+        out, stats, overflow = self.outputs
+        return (out.map(torch.clone),
+                {k: v.clone() for k, v in stats.items()}, overflow.clone())
+
+
+class CompiledPlan:
+    """The executable of one plan: ``run(rels) -> (Relation, stats,
+    overflow)``, like ``execute_*``.
+
+    On a CUDA device the first call for an input signature (shapes,
+    dtypes, device) captures the whole ``execute_*`` call as a CUDA
+    graph (:class:`_Graph`); every later call copies the inputs in,
+    replays, and returns clones of the outputs, so a result stays valid
+    after the next replay.  A capture or replay error raises: there is
+    no eager fallback.  On the CPU (a caller that asked for it) a call
+    is the eager ``execute_*`` call.  ``grid``, ``query``, ``strategy``,
+    ``caps``, ``opts`` and ``donate`` are the plan it was compiled for.
+    """
+
+    def __init__(self, grid: Grid, query: JoinQuery, strategy: str,
+                 caps: ChainCaps, opts: Tuple, donate: bool, chain: bool):
+        self.grid, self.query, self.strategy = grid, query, strategy
+        self.caps, self.opts, self.donate = caps, dict(opts), donate
+        self.chain = chain
+        self._graphs: Dict[Tuple, _Graph] = {}
+        _LIVE.add(self)
+
+    def _execute(self, rels: Sequence[Relation]):
+        fn = execute_chain if self.chain else execute_query
+        return fn(self.grid, self.query, list(rels), strategy=self.strategy,
+                  caps=self.caps, **self.opts)
+
+    def check_ported(self) -> None:
+        """Raise, without running anything, the ``NotImplementedError``
+        of an option this port does not have yet (``strategy=
+        "mapside"``: A11; ``overlap_chunks > 1``: A9)."""
+        if self.strategy == "mapside":
+            raise _mapside_not_ported()
+        _check_options(self.opts.get("overlap_chunks", 1))
+
+    def __call__(self, rels: Sequence[Relation]):
+        rels = list(rels)
+        self.check_ported()
+        if not rels[0].valid.is_cuda:
+            return self._execute(rels)
+        sig = _signature(rels)
+        graph = self._graphs.get(sig)
+        if graph is None:
+            graph = _Graph(self._execute, rels)
+            self._graphs[sig] = graph
+        return graph.replay(rels)
+
+    def with_lanes(self, lanes: int) -> "CompiledPlan":
+        """The same plan over ``SimGrid(grid.shape, lanes=lanes)``: one
+        execution of ``lanes`` stacked inputs (the query engine's
+        batches), from the same program cache."""
+        if not isinstance(self.grid, SimGrid):
+            raise ValueError("lanes need a SimGrid")
+        jit = jit_execute_chain if self.chain else jit_execute_query
+        return jit(SimGrid(self.grid.shape, lanes=lanes), self.query,
+                   strategy=self.strategy, caps=self.caps,
+                   donate=self.donate, **self.opts)
+
+    def reset(self) -> None:
+        """Drop every captured graph and its static buffers."""
+        self._graphs.clear()
+
+
+@functools.lru_cache(maxsize=128)
+def _compiled_sim(grid_shape: Tuple[int, ...], lanes: int, query: JoinQuery,
+                  strategy: str, caps: ChainCaps, opts: Tuple, donate: bool,
+                  chain: bool) -> CompiledPlan:
+    return CompiledPlan(SimGrid(grid_shape, lanes=lanes), query, strategy,
+                        caps, opts, donate, chain)
+
+
+@functools.lru_cache(maxsize=32)
+def _compiled_grid(grid: Grid, query: JoinQuery, strategy: str,
+                   caps: ChainCaps, opts: Tuple, donate: bool,
+                   chain: bool) -> CompiledPlan:
+    # Other grids hash by identity: the cache holds per-instance
+    # programs (one long-lived grid object).
+    return CompiledPlan(grid, query, strategy, caps, opts, donate, chain)
+
+
+def _compiled(grid: Grid, query: JoinQuery, strategy: str, caps: ChainCaps,
+              donate: bool, opts: dict, chain: bool) -> CompiledPlan:
+    opts_key = tuple(sorted(opts.items()))
+    if isinstance(grid, SimGrid):
+        return _compiled_sim(grid.shape, grid.lanes, query, strategy, caps,
+                             opts_key, donate, chain)
+    return _compiled_grid(grid, query, strategy, caps, opts_key, donate,
+                          chain)
+
+
+def jit_execute_chain(grid: Grid, query: ChainQuery, *, strategy: str,
+                      caps: ChainCaps, donate: bool = True, **opts
+                      ) -> CompiledPlan:
+    """Compile the *entire* chain-query execution into one executable.
+
+    Returns ``run(rels) -> (Relation, Stats, overflow)`` — the whole
+    lowering (every shuffle hop, local join, and aggregation round)
+    captured once as a CUDA graph and replayed as a unit, instead of
+    dispatching each hop's ops from the host (see :class:`CompiledPlan`;
+    on the CPU it runs eagerly).  Because every buffer is static-shape,
+    the executable is reusable for any inputs of the same capacities.
+    Executables are cached so repeated calls with the same plan skip
+    recapture: for :class:`SimGrid` the key is (grid *shape*, lanes,
+    query, strategy, caps, options, ``donate``) — any equal SimGrid
+    hits; for other grids the key uses the grid *instance*.
+
+    ``donate`` is accepted and keyed as in the JAX package; the port
+    copies the inputs into its own buffers and never reads the caller's
+    tensors after the call, so donating or not changes nothing else.
+    Options (``measure_skew``, ``local_combine``, ``join_impl``,
+    ``overlap_chunks``) forward to :func:`execute_chain`; options of
+    later slices raise from the call, not from the cache lookup.
+    """
+    return _compiled(grid, query, strategy, caps, donate, opts, chain=True)
+
+
+def jit_execute_query(grid: Grid, query: JoinQuery, *, strategy: str,
+                      caps: ChainCaps, donate: bool = True, **opts
+                      ) -> CompiledPlan:
+    """Compile an *entire* general-query execution into one executable
+    — :func:`jit_execute_chain` lifted to :class:`JoinQuery` (same
+    caching, donation, and reuse semantics).  Options (``join_order``,
+    ``measure_skew``, ``local_combine``, ``join_impl``) forward to
+    :func:`execute_query`; a ``join_order`` list must be passed as a
+    tuple (the cache key hashes it)."""
+    return _compiled(grid, query, strategy, caps, donate, opts, chain=False)
+
+
+def clear_compiled_caches() -> None:
+    """Drop every cached whole-plan executable (:func:`jit_execute_chain`
+    / :func:`jit_execute_query`) and every captured graph, also those of
+    executables a caller still holds, so that
+    ``torch.cuda.empty_cache()`` can return the graph pool.  The serving
+    benchmark uses this to measure a genuinely cold plan+capture."""
+    _compiled_sim.cache_clear()
+    _compiled_grid.cache_clear()
+    for plan in list(_LIVE):
+        plan.reset()
+    _POOLS.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from .. import config
 from ..kernels import fused_join as fj
 from ..kernels.segment_sum import segment_sum
 from .relation import Relation, scatter_drop
@@ -184,7 +185,7 @@ def _probe_expand_emit(left: Relation, right: Relation, left_key: str,
 def _check_out_capacity(out_capacity: int) -> None:
     # The reference's int32 position arithmetic bound, kept so both
     # packages accept the same capacities.
-    if not 0 < out_capacity < 2 ** 30 - 1:
+    if not 0 < out_capacity < config.SORT_MERGE_MAX_CAP:
         raise ValueError(f"out_capacity must be in (0, 2^30 - 1), got "
                          f"{out_capacity}")
 
@@ -251,7 +252,7 @@ def local_join_allpairs(left: Relation, right: Relation, left_key: str,
     del presorted_l, presorted_r
     lk, rk = left.col(left_key), right.col(right_key)
     nl, nr = lk.shape[-1], rk.shape[-1]
-    if nl * nr >= 2 ** 31:
+    if nl * nr >= config.INT32_PAIR_LIMIT:
         raise ValueError(
             f"all_pairs flat pair index overflows int32: {nl} x {nr} = "
             f"{nl * nr} >= 2^31 pairs.  Use join_impl='sort_merge' (no "

@@ -5,9 +5,11 @@ Port of ``src/repro/core/shuffle.py``, SimGrid only.  A
 per-device operator of this package is batched over leading axes, so
 per-device work runs on the whole grid in one call (the JAX package's
 ``map_devices`` vmap has no counterpart), an all-to-all is one scatter
-into the receive shards and an all-gather a broadcast.  The
-``torch.distributed`` grid (the JAX package's ``ShardGrid``) is a later
-slice.
+into the receive shards and an all-gather a broadcast.  ``SimGrid(shape,
+lanes=L)`` adds one lane axis ahead of the grid axes — the port's
+``jax.vmap`` over a whole execution: lanes never exchange tuples, and
+every grid reduction answers per lane.  The ``torch.distributed`` grid
+(the JAX package's ``ShardGrid``) is a later slice.
 """
 
 from __future__ import annotations
@@ -27,6 +29,12 @@ class Grid:
     axes alike."""
 
     shape: Tuple[int, ...]
+    lanes: int = 0          # independent executions along a leading axis
+
+    @property
+    def lead(self) -> int:
+        """Tensor axes ahead of the grid axes: 1 with lanes, else 0."""
+        return 1 if self.lanes else 0
 
     def all_gather(self, x: Relation, grid_axis: int) -> Relation:
         """Replicate per-device x along a grid axis -> leading axis=source."""
@@ -41,10 +49,19 @@ class Grid:
 
 
 class SimGrid(Grid):
-    """Simulated grid: tensors carry the grid axes as leading dims."""
+    """Simulated grid: tensors carry the grid axes as leading dims.
 
-    def __init__(self, shape: Sequence[int]):
+    With ``lanes=L > 0`` every tensor carries one more axis in front,
+    ``(L, *shape, rows)``: L independent executions of one plan (the
+    query engine's batched tenants).  Grid axes are then counted after
+    the lane axis, and :meth:`reduce_any` / :meth:`reduce_sum` return
+    one value per lane."""
+
+    def __init__(self, shape: Sequence[int], lanes: int = 0):
+        if lanes < 0:
+            raise ValueError(f"lanes must be >= 0, got {lanes}")
         self.shape = tuple(shape)
+        self.lanes = int(lanes)
 
     @property
     def ndim(self) -> int:
@@ -54,19 +71,26 @@ class SimGrid(Grid):
         # (*grid, ...) -> (*grid, K_src, ...) with out[g, s, ...] =
         # x[g with coordinate grid_axis replaced by s].
         k = self.shape[grid_axis]
+        axis, last = self.lead + grid_axis, self.lead + self.ndim - 1
 
         def gather(a):
-            src_last = a.movedim(grid_axis, self.ndim - 1).unsqueeze(grid_axis)
+            src_last = a.movedim(axis, last).unsqueeze(axis)
             shape = list(src_last.shape)
-            shape[grid_axis] = k
+            shape[axis] = k
             return src_last.expand(shape)
         return x.map(gather)
 
     def reduce_any(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.any(x.flatten(0, self.ndim - 1), 0)
+        return torch.any(x.flatten(self.lead, self.lead + self.ndim - 1),
+                         self.lead)
 
     def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return x.sum(tuple(range(self.ndim)))
+        return x.sum(tuple(range(self.lead, self.lead + self.ndim)))
+
+    def any_per_lane(self, x: torch.Tensor) -> torch.Tensor:
+        """OR of every element of ``x`` but its lane axis: a scalar
+        without lanes, (L,) with them."""
+        return x.flatten(self.lead).any(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +135,9 @@ def shuffle_by_bucket(grid: Grid, rel: Relation, bucket: torch.Tensor,
     ``recv_capacity`` is the per (device, source) slot capacity; the
     received K×recv buffers are compacted to ``local_capacity`` (default
     K·recv = lossless).  Returns (local Relation, global overflow flag,
-    tuples sent per device).
+    tuples sent per device).  On a laned grid the lane is the most
+    significant digit of the flat device index, so no tuple leaves its
+    lane, and the overflow flag is per lane.
 
     The result is, bit for bit, the reference's partition into (K, recv)
     send buffers → all-to-all → flatten → compact, but no send buffer is
@@ -139,10 +165,11 @@ def shuffle_by_bucket(grid: Grid, rel: Relation, bucket: torch.Tensor,
     source = device_idx // stride % k
     if local_capacity is not None and local_capacity < k * recv_capacity:
         cap = local_capacity
-        earlier = torch.cumsum(sent, grid_axis) - sent
+        axis = grid.lead + grid_axis
+        earlier = torch.cumsum(sent, axis) - sent
         pos = earlier.gather(-1, dest) + rank
-        received = sent.sum(grid_axis)        # per destination
-        overflow = overflow | (received > cap).any()
+        received = sent.sum(axis)             # per destination
+        overflow = overflow | grid.any_per_lane(received > cap)
     else:
         cap = k * recv_capacity
         pos = source * recv_capacity + rank
@@ -175,4 +202,5 @@ def broadcast_along(grid: Grid, rel: Relation, grid_axis: int,
     out = flatten_leading(gathered)
     if local_capacity is not None:
         return compact_to(grid, out, local_capacity)
-    return out, torch.zeros((), dtype=torch.bool, device=rel.device)
+    return out, torch.zeros(rel.valid.shape[:grid.lead], dtype=torch.bool,
+                            device=rel.device)

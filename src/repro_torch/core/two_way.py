@@ -39,7 +39,8 @@ def shuffle_to_device(grid: Grid, rel: Relation, key: str, recv_capacity: int,
     """Route every tuple to the unique device owning hash(key) — one hop
     per grid axis, the receive buffers compacted to ``local_capacity``
     after each hop."""
-    overflow = torch.zeros((), dtype=torch.bool, device=rel.device)
+    overflow = torch.zeros(rel.valid.shape[:grid.lead], dtype=torch.bool,
+                           device=rel.device)
     cur = rel
     for axis in range(len(grid.shape)):
         bucket = flat_grid_bucket(grid, cur.col(key), salt=salt)[axis]

@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _HIST = (_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P)
 _TOTALS = (_P, _P, _P, _LL, _LL, _LL, _LL, _P)
@@ -53,9 +55,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Kernel launches per kernel, counted by each wrapper where it launches
-#: its kernel and nowhere else.  Callers reset the counts to 0 before
-#: the run they want to read.
+#: its kernel (:func:`count_launch`) and nowhere else.  Callers reset the
+#: counts to 0 before the run they want to read.
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name``; a wrapper calls it right
+    after its launch.  Under CUDA-graph capture the launch is recorded
+    into the graph, not run, so it is not counted; a replay runs no
+    Python, and its launches are read from the device trace
+    (:func:`repro_torch.kernels.ops.traced_launches`)."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -128,7 +128,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      int(causal), _query_tile(sq, block_q),
                                      KV_TILE, stream)
     _build.check(lib, "flash_attention", rc)
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     return out
 
 

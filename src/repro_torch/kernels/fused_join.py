@@ -105,7 +105,7 @@ def _probe_counts_cuda(queries: torch.Tensor, sorted_keys: torch.Tensor
             hi.data_ptr(), batch, nq, nr,
             torch.cuda.current_stream(queries.device).cuda_stream)
     _build.check(lib, "probe_counts", rc)
-    _build.LAUNCHES["probe_counts"] += 1
+    _build.count_launch("probe_counts")
     return lo, hi
 
 

@@ -90,7 +90,7 @@ def _hash_histogram_cuda(keys: torch.Tensor, valid: torch.Tensor,
             n_blocks, n_buckets, _salt_constant(salt),
             torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check(lib, "hash_histogram", rc)
-    _build.LAUNCHES["hash_histogram"] += 1
+    _build.count_launch("hash_histogram")
     return out
 
 
@@ -114,7 +114,7 @@ def _bucket_counts_cuda(keys: torch.Tensor, valid: torch.Tensor,
             n_buckets, _salt_constant(salt),
             torch.cuda.current_stream(keys.device).cuda_stream)
     _build.check(lib, "hash_histogram", rc)
-    _build.LAUNCHES["hash_histogram"] += 1
+    _build.count_launch("hash_histogram")
     return out
 
 

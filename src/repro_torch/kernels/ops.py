@@ -16,15 +16,59 @@ The entry points are ``segment_sum.segment_sum``,
 ``bucket_counts`` and ``flash_attention.flash_attention`` (the JAX
 package's ``ops.flash_attention``).  :data:`LAUNCHES` counts each
 kernel's launches: a wrapper adds one where it launches its kernel.
+A CUDA-graph replay runs no wrapper; :func:`traced_launches` counts
+the launches that ran on the card from the profiler's device trace.
 """
 
 from __future__ import annotations
 
+import re
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
 from ._build import LAUNCHES
 
-__all__ = ["LAUNCHES", "reset_launches"]
+__all__ = ["KERNEL_SYMBOLS", "LAUNCHES", "reset_launches", "traced_launches"]
+
+#: The device functions of each kernel that its wrapper launches once a
+#: call (one of them, by path), as they appear in a device trace.  A
+#: second function of the same call (``segment_sum_fixup``,
+#: ``attention_combine``) is left out, so a trace counts in the unit of
+#: :data:`LAUNCHES`.
+KERNEL_SYMBOLS = {
+    "segment_sum": ("segment_sum_tiles",),
+    "probe_counts": ("probe_counts_kernel",),
+    "hash_histogram": ("hist_blocks", "bucket_totals"),
+    "flash_attention": ("flash_attention_kernel", "attention_wgmma",
+                        "attention_split"),
+}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def traced_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
+    """Run ``fn()`` under ``torch.profiler`` and count each kernel's
+    records in the device trace (:data:`KERNEL_SYMBOLS`): the launches
+    that ran on the card during the call, those of a CUDA-graph replay
+    included.  Returns ``(fn(), counts)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pattern = {name: re.compile(r"\b(?:%s)\b" % "|".join(symbols))
+               for name, symbols in KERNEL_SYMBOLS.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    counts = {name: 0 for name in KERNEL_SYMBOLS}
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        for name, pat in pattern.items():
+            if pat.search(event.key):
+                counts[name] += event.count
+    return result, counts

@@ -78,5 +78,5 @@ def _segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
         carries.data_ptr(), batch, n, num_segments,
         torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(lib, "segment_sum", rc)
-    _build.LAUNCHES["segment_sum"] += 1
+    _build.count_launch("segment_sum")
     return out

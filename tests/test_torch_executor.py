@@ -7,7 +7,8 @@ paper compares (1,3J, 2,3J, 2,3JA and 1,3JA) under both reduce-side
 joins (``sort_merge`` and ``fused``).  The output relation (every
 column, the validity mask, row order and padding), the read/shuffled
 stats and the overflow flag equal the reference's exactly — every sum
-here is integer-valued — and measured equals the cost model.
+here is integer-valued — and measured equals the cost model.  The
+port's ``jit_execute_chain`` is held to the same references.
 """
 
 import dataclasses
@@ -137,6 +138,19 @@ def test_execute_chain_matches_jax(name, aggregate, strategy, join_impl):
     measured = float(stats["read"]) + float(stats["shuffled"])
     assert measured == analytic_total(name)
     assert result_total(out, aggregate) == STATS.prefix_joins[-1]
+
+
+@pytest.mark.parametrize("join_impl", ["sort_merge", "fused"])
+@pytest.mark.parametrize("name,aggregate,strategy", STRATEGIES,
+                         ids=[s[0] for s in STRATEGIES])
+def test_jit_execute_chain_matches_jax(name, aggregate, strategy, join_impl):
+    """The port's compiled executable (on the CPU: the cached eager
+    call) against the same JAX ``jit_execute_chain`` references."""
+    q = T.ChainQuery.three_way(aggregate=aggregate)
+    run = T.jit_execute_chain(T.SimGrid(GRID), q, strategy=strategy,
+                              caps=CAPS, donate=False, join_impl=join_impl)
+    got = run(T.chain_edge_inputs(q, EDGES, GRID, device="cpu"))
+    assert_matches_reference(got, jax_reference(aggregate, strategy))
 
 
 @pytest.mark.parametrize("join_impl", ["sort_merge", "fused"])
