@@ -11,7 +11,8 @@ Public API of this slice, by layer:
     JoinQuery, QueryAggregate, ChainQuery, ChainAggregate
 
   Physical executor
-    execute_chain / execute_query, jit_execute_chain /
+    execute_chain / execute_query, mapside_cascade_chain,
+    jit_execute_chain /
     jit_execute_query (the whole plan as one cached executable, a CUDA
     graph on the GPU), clear_compiled_caches,
     one_round_chain / one_round_query,
@@ -23,14 +24,17 @@ Public API of this slice, by layer:
 
   Data plane
     sort_merge_join, fused_sort_merge_join, groupby_sum, local_join,
-    sort_rows; oracles local_join_allpairs, groupby_sum_multipass
+    sort_rows, partition; oracles local_join_allpairs,
+    groupby_sum_multipass
 
   Statistics, cost model, planner (copies of the JAX package's)
     ChainStats, chain_stats_exact, plan_chain, plan_query, ...
 
-  Partition manifests (the host half of the partitioned store)
-    PartitionSpec, co_partitioned, chain_partitioning,
-    default_part_capacity
+  Partitioned store (map-side joins)
+    PartitionSpec, PartitionedRelation, partition_relation,
+    repartition, verify_partition_layout, co_partitioned,
+    chain_partitioning, default_part_capacity; cost_chain_mapside,
+    chain_mapside_modes, chain_mapside_placed, chain_mapside_shuffles
 
   Skew layer
     heavy_hitters, chain_key_sketch, detect_chain_skew,
@@ -48,21 +52,26 @@ from .executor import (ChainCaps, CompiledPlan, cascade_chain, cascade_query,
                        chain_edge_inputs, clear_compiled_caches,
                        default_chain_caps, default_mapside_caps,
                        default_query_caps, execute_chain, execute_query,
-                       jit_execute_chain, jit_execute_query, one_round_chain,
+                       jit_execute_chain, jit_execute_query,
+                       mapside_cascade_chain, one_round_chain,
                        one_round_query, query_table_inputs, scatter_to_grid,
                        shares_skew_chain)
 from .local import (fused_sort_merge_join, groupby_sum, groupby_sum_multipass,
-                    local_join, local_join_allpairs, sort_merge_join,
-                    sort_rows)
+                    local_join, local_join_allpairs, partition,
+                    sort_merge_join, sort_rows)
 from .aggregation import distributed_groupby_sum, project_product
 from .cost_model import (ChainPartitioning, ChainStats, JoinStats, QueryStats,
-                         balance_threshold, chain_replications,
-                         cost_chain_cascade, cost_chain_cascade_pushdown,
+                         balance_threshold, chain_mapside_modes,
+                         chain_mapside_placed, chain_mapside_shuffles,
+                         chain_replications, cost_chain_cascade,
+                         cost_chain_cascade_pushdown, cost_chain_mapside,
                          cost_chain_one_round, cost_chain_one_round_agg,
                          cost_chain_shares_skew, cost_query_cascade,
                          integer_shares, skew_clamped_shape)
-from .partition import (PartitionSpec, chain_partitioning, co_partitioned,
-                        default_part_capacity)
+from .partition import (PartitionedRelation, PartitionSpec,
+                        chain_partitioning, co_partitioned,
+                        default_part_capacity, partition_relation,
+                        repartition, verify_partition_layout)
 from .planner import (ChainPlan, Plan, QueryPlan, chain_stats_exact,
                       crossover_reducers_chain, plan_chain, plan_query,
                       plan_three_way, query_stats_exact, self_join_stats,
@@ -77,6 +86,7 @@ __all__ = [
     "JoinQuery", "QueryAggregate", "ChainQuery", "ChainAggregate",
     "ChainCaps", "CompiledPlan", "execute_chain", "execute_query",
     "jit_execute_chain", "jit_execute_query", "clear_compiled_caches",
+    "mapside_cascade_chain",
     "one_round_chain",
     "one_round_query", "cascade_chain", "cascade_query", "shares_skew_chain",
     "two_way_join",
@@ -85,15 +95,18 @@ __all__ = [
     "default_chain_caps", "default_query_caps", "default_mapside_caps",
     "sort_merge_join", "fused_sort_merge_join", "groupby_sum",
     "groupby_sum_multipass", "local_join", "local_join_allpairs",
-    "sort_rows",
+    "sort_rows", "partition",
     "ChainPartitioning", "ChainStats", "JoinStats", "QueryStats",
     "balance_threshold",
+    "chain_mapside_modes", "chain_mapside_placed", "chain_mapside_shuffles",
     "chain_replications", "cost_chain_cascade", "cost_chain_cascade_pushdown",
+    "cost_chain_mapside",
     "cost_chain_one_round", "cost_chain_one_round_agg",
     "cost_chain_shares_skew", "cost_query_cascade", "integer_shares",
     "skew_clamped_shape",
-    "PartitionSpec", "co_partitioned", "chain_partitioning",
-    "default_part_capacity",
+    "PartitionSpec", "PartitionedRelation", "partition_relation",
+    "repartition", "verify_partition_layout", "co_partitioned",
+    "chain_partitioning", "default_part_capacity",
     "ChainPlan", "Plan", "QueryPlan", "chain_stats_exact",
     "crossover_reducers_chain", "plan_chain", "plan_query", "plan_three_way",
     "query_stats_exact", "self_join_stats", "self_join_stats_exact",

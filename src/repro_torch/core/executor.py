@@ -2,6 +2,9 @@
 
 Port of ``src/repro/core/executor.py`` for this slice:
 
+* :func:`mapside_cascade_chain` — the zero-shuffle cascade over the
+  partitioned store (MS,NJ[A]): stored partitions merge-join in place,
+  and only unproven hops move tuples;
 * :func:`one_round_query` — the Afrati–Ullman *Shares* join on a
   hypercube with one dimension per join attribute (1,NJ; with an
   aggregate, 1,NJA adds a charged aggregation round);
@@ -22,9 +25,8 @@ Cost accounting is the paper's: each round charges read + shuffled
 tuples, as float32 device scalars; the final aggregator of a pushdown
 cascade is uncharged.  ``measure_skew=True`` adds
 ``stats["max_bucket_load"]``, the most-loaded reducer of any map-phase
-hop, from the ``hash_histogram`` kernel.  ``overlap_chunks > 1`` and
-the map-side cascade are later slices and raise
-``NotImplementedError``.
+hop, from the ``hash_histogram`` kernel.  ``overlap_chunks > 1`` is a
+later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from . import hashing
 from .aggregation import distributed_groupby_sum, project_product
 from .cost_model import ChainStats, chain_replications
 from .local import groupby_sum, local_join
+from .partition import PartitionedRelation
 from .plan import ChainQuery, JoinQuery
 from .relation import Relation, concat
 from .shuffle import Grid, SimGrid, broadcast_along, shuffle_by_bucket
@@ -102,18 +105,11 @@ def _false(rel: Relation, lead: int = 0) -> torch.Tensor:
                        device=rel.device)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP {item})")
-
-
-def _mapside_not_ported():
-    return _not_ported("strategy 'mapside' (the partitioned store)", "A11")
-
-
 def _check_options(overlap_chunks: int) -> None:
     if overlap_chunks > 1:
-        raise _not_ported("overlap_chunks > 1 (the overlapped shuffle)", "A9")
+        raise NotImplementedError("overlap_chunks > 1 (the overlapped "
+                                  "shuffle) is not ported to PyTorch yet "
+                                  "(ROADMAP A9)")
 
 
 def _zero(rel: Relation, lead: int = 0) -> torch.Tensor:
@@ -547,6 +543,193 @@ def shares_skew_chain(query: ChainQuery, rels: Sequence[Relation], plan, *,
 
 
 # ---------------------------------------------------------------------------
+# Map-side cascade: merge-join stored partitions, shuffle only when unproven
+# ---------------------------------------------------------------------------
+
+def _device_layout(rel) -> Tuple[Relation, bool]:
+    """Per-device form of a cascade input: a
+    :class:`~repro_torch.core.partition.PartitionedRelation`'s ``parts``
+    ARE its placement (partition p lives on device p) and are known
+    sorted; a plain grid-scattered :class:`Relation` is used as-is,
+    unsorted."""
+    if isinstance(rel, PartitionedRelation):
+        return rel.parts, rel.spec.sorted
+    return rel, False
+
+
+def _place_on_partitions(grid: Grid, rel: Relation, key: str, P: int,
+                         salt: int, recv: int, local: int):
+    """Repartition ``rel`` by the stored hash ``bucket_hash(key, P,
+    salt)`` onto the partition grid.  Returns (relation, overflow)."""
+    bucket = hashing.bucket_hash(rel.col(key), P, salt=salt)
+    out, ovf, _ = shuffle_by_bucket(grid, rel, bucket, 0, recv,
+                                    local_capacity=local)
+    return out, ovf
+
+
+def mapside_cascade_chain(grid: Grid, query: ChainQuery, rels, *,
+                          caps: ChainCaps, partitioning, hop_modes,
+                          place_output: bool = False,
+                          measure_skew: bool = False,
+                          join_impl: str = "sort_merge",
+                          overlap_chunks: int = 1,
+                          ) -> Tuple[Relation, Stats, torch.Tensor]:
+    """The zero-shuffle cascade over the partitioned store (MS,NJ[A]).
+
+    ``rels`` mixes :class:`~repro_torch.core.partition.PartitionedRelation`
+    inputs (stored hash-partitioned and key-sorted: their ``parts`` feed
+    the grid with no placement hop) and grid-scattered plain
+    :class:`Relation` inputs, in query order.  ``partitioning`` is the
+    :class:`~repro_torch.core.cost_model.ChainPartitioning` certificate
+    and ``hop_modes`` the planner's per-hop choice
+    (:func:`~repro_torch.core.cost_model.chain_mapside_modes`):
+
+    * ``"mapside"`` — relation j is proven co-partitioned on the hop
+      key: the running intermediate repartitions by the *stored* hash
+      onto the partition grid — or moves nothing on hop 1 when relation
+      0 is pre-partitioned on the first join key (``left0_proven``) —
+      and every device merge-joins against its resident partition with
+      the stored side's sort skipped (``presorted_r``).  The stored
+      relation ships zero tuples.
+    * ``"broadcast"`` — relation j replicates to all P devices (charged
+      P·|r_j|); the intermediate does not move.
+    * ``"shuffle"`` — the ordinary :func:`two_way_join` hop.
+
+    With ``place_output`` each hop's result is repartitioned onto the
+    next hop's join key at birth whenever the next hop is proven, so
+    every proven hop shuffles exactly zero tuples; that movement is
+    reported as ``"placed"`` / ``"hop_placed"`` and charged into
+    ``total``.  Shuffled + placed is the same with or without placement.
+
+    Runs on the 1-D partition grid (``grid.shape == (P,)``; a lane axis
+    may stand ahead of it).  Stats are read + shuffled per hop, plus
+    ``"hop_shuffled"`` (against
+    :func:`~repro_torch.core.cost_model.chain_mapside_shuffles`) and
+    ``"hop_placed"`` (against
+    :func:`~repro_torch.core.cost_model.chain_mapside_placed`), one
+    entry per hop on the last axis.  Aggregated queries run one final
+    charged Γ round (no pushdown on this path).
+    """
+    _check_options(overlap_chunks)
+    n = query.n_relations
+    P = partitioning.num_partitions
+    if len(grid.shape) != 1 or grid.shape[0] != P:
+        raise ValueError(f"map-side cascade needs the 1-D partition grid "
+                         f"({P},), got {grid.shape}")
+    if len(hop_modes) != n - 1:
+        raise ValueError(f"{n - 1} hops need {n - 1} modes, got "
+                         f"{len(hop_modes)}")
+    for j, mode in enumerate(hop_modes):
+        if mode == "mapside" and not partitioning.right_proven[j]:
+            raise ValueError(f"hop {j + 1} is not proven co-partitioned; "
+                             f"mode 'mapside' would be unsound")
+    if (partitioning.key_dtype is not None
+            and partitioning.key_dtype != config.key_dtype_name()):
+        raise ValueError(
+            f"partitioning certificate was minted over "
+            f"{partitioning.key_dtype} keys but the current configuration "
+            f"uses {config.key_dtype_name()}; the partition hash folds "
+            f"64-bit keys, so the stored layout proves nothing here — "
+            f"repartition under the current dtype")
+
+    left, left_sorted = _device_layout(rels[0])
+    all_stats: List[Stats] = []
+    hop_shuffled: List[torch.Tensor] = []
+    hop_placed: List[torch.Tensor] = []
+    overflow = _false(left, grid.lead)
+    skew = _zero(left, grid.lead)
+    zero = _zero(left, grid.lead)
+    left_on_key = bool(partitioning.left0_proven)
+    left_cap = None                       # None => first hop uses caps.recv
+    value_cols: List[str] = [query.values[0]] if query.values[0] else []
+
+    for j in range(1, n):
+        key = query.attrs[j]
+        mode = hop_modes[j - 1]
+        right, right_sorted = _device_layout(rels[j])
+        recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
+        local = caps.local if left_cap is None else max(left_cap, caps.recv)
+        out_cap = caps.out if j == n - 1 else caps.mid
+
+        if mode == "shuffle":
+            if measure_skew:
+                skew = torch.maximum(skew, _hop_load(grid, left, key, P,
+                                                     salt=j - 1))
+                skew = torch.maximum(skew, _hop_load(grid, right, key, P,
+                                                     salt=j - 1))
+            left, st, ovf = two_way_join(
+                grid, left, right, key, key, recv_capacity=recv,
+                out_capacity=out_cap, local_capacity=local, salt=j - 1,
+                join_impl=join_impl)
+            all_stats.append(st)
+            hop_shuffled.append(st["shuffled"])
+            overflow = overflow | ovf
+        else:
+            read = (_count(grid, left) + _count(grid, right)
+                    ).to(torch.float32)
+            if mode == "broadcast":
+                right, ovf_b = broadcast_along(grid, right, 0, local)
+                overflow = overflow | ovf_b
+                shuffled = _count(grid, right).to(torch.float32)
+                pre_l, pre_r = False, False   # the gather interleaves runs
+            else:                             # mapside
+                if left_on_key:
+                    shuffled = zero           # both sides already in place
+                    pre_l = left_sorted
+                else:
+                    if measure_skew:
+                        skew = torch.maximum(skew, _hop_load(
+                            grid, left, key, P, salt=partitioning.salt))
+                    left, ovf_s = _place_on_partitions(
+                        grid, left, key, P, partitioning.salt, recv, local)
+                    overflow = overflow | ovf_s
+                    shuffled = _count(grid, left).to(torch.float32)
+                    pre_l = False
+                pre_r = right_sorted
+            left, ovf_j = local_join(left, right, key, key, out_cap,
+                                     impl=join_impl, presorted_l=pre_l,
+                                     presorted_r=pre_r)
+            overflow = overflow | grid.reduce_any(ovf_j)
+            all_stats.append({"read": read, "shuffled": shuffled})
+            hop_shuffled.append(shuffled)
+
+        left_sorted = False
+        left_on_key = False
+        if place_output and j < n - 1 and hop_modes[j] == "mapside":
+            # Land the intermediate already partitioned on the next hop's
+            # key (the stored hash) — its one move, made at birth.  Each
+            # (dest, source) slot carries ~1/P of a device's share, so
+            # out_cap/P-sized slots with the same slack hold it.
+            slot = -(-out_cap // P) + 256
+            left, ovf_p = _place_on_partitions(
+                grid, left, query.attrs[j + 1], P, partitioning.salt, slot,
+                out_cap)
+            overflow = overflow | ovf_p
+            hop_placed.append(_count(grid, left).to(torch.float32))
+            left_on_key = True
+        else:
+            hop_placed.append(zero)
+        left_cap = out_cap
+        if query.values[j]:
+            value_cols.append(query.values[j])
+
+    if query.aggregate is not None:
+        left, st_f, ovf_f = _final_aggregate(grid, query, left, value_cols,
+                                             caps, local_combine=False)
+        overflow = overflow | ovf_f
+        all_stats.append(st_f)
+
+    stats = merge_stats(*all_stats)
+    stats["hop_shuffled"] = torch.stack(hop_shuffled, -1)
+    stats["hop_placed"] = torch.stack(hop_placed, -1)
+    stats["placed"] = sum(hop_placed, zero)
+    stats["total"] = stats["total"] + stats["placed"]
+    if measure_skew:
+        stats["max_bucket_load"] = skew
+    return left, stats, overflow
+
+
+# ---------------------------------------------------------------------------
 # Entry points: run a logical plan
 # ---------------------------------------------------------------------------
 
@@ -555,12 +738,23 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                   measure_skew: bool = False, local_combine: bool = False,
                   join_impl: str = "sort_merge",
                   overlap_chunks: int = 1,
+                  partitioning=None, hop_modes=None,
+                  place_output: bool = False,
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
     """Execute ``query`` with a planner-chosen strategy:
 
     * ``"one_round"``        — Shares hypercube (1,NJ / 1,NJA)
     * ``"cascade"``          — plain left-deep cascade (N−1,NJ)
     * ``"cascade_pushdown"`` — cascade with aggregation pushdown (N−1,NJA)
+    * ``"mapside"``          — merge-join the partitioned store (MS,NJ[A]);
+      needs ``partitioning`` (the
+      :class:`~repro_torch.core.cost_model.ChainPartitioning`
+      certificate) and ``hop_modes`` (``plan.hop_modes``), runs on the
+      1-D grid of ``num_partitions`` devices, and takes
+      :class:`~repro_torch.core.partition.PartitionedRelation` inputs on
+      every proven position (:func:`mapside_cascade_chain`);
+      ``place_output`` lands each intermediate on the next proven
+      hop's partitions.
 
     ``join_impl`` selects the reduce-side join for every strategy:
     ``"sort_merge"`` (default), ``"fused"`` (rank-packed sorts and the
@@ -577,7 +771,15 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     """
     _check_options(overlap_chunks)
     if strategy == "mapside":
-        raise _mapside_not_ported()
+        if partitioning is None or hop_modes is None:
+            raise ValueError("mapside needs partitioning and hop_modes "
+                             "(plan with plan_chain(partitioning=...))")
+        return mapside_cascade_chain(grid, query, rels, caps=caps,
+                                     partitioning=partitioning,
+                                     hop_modes=hop_modes,
+                                     place_output=place_output,
+                                     measure_skew=measure_skew,
+                                     join_impl=join_impl)
     if strategy == "shares_skew":
         raise ValueError(
             "shares_skew runs per-combination grids; call "
@@ -654,12 +856,25 @@ _LIVE: "weakref.WeakSet[CompiledPlan]" = weakref.WeakSet()
 _POOLS: Dict[torch.device, tuple] = {}
 
 
-def _signature(rels: Sequence[Relation]) -> Tuple:
+def _relation(rel) -> Relation:
+    """The tensors of an input: a plain :class:`Relation`, or a
+    :class:`~repro_torch.core.partition.PartitionedRelation`'s parts."""
+    return rel.parts if isinstance(rel, PartitionedRelation) else rel
+
+
+def input_signature(rels: Sequence) -> Tuple:
     """What a captured graph is specific to: every column's (and the
-    mask's) shape and dtype, by name, and the device."""
-    return (rels[0].device,) + tuple(
-        tuple((n, tuple(c.shape), c.dtype) for n, c in sorted(r.cols.items()))
-        + ((tuple(r.valid.shape), r.valid.dtype),) for r in rels)
+    mask's) shape and dtype, by name, a partitioned input's spec, and
+    the device."""
+    def one(rel):
+        r = _relation(rel)
+        sig = tuple((n, tuple(c.shape), c.dtype)
+                    for n, c in sorted(r.cols.items()))
+        sig += ((tuple(r.valid.shape), r.valid.dtype),)
+        if isinstance(rel, PartitionedRelation):
+            sig += (rel.spec,)
+        return sig
+    return (_relation(rels[0]).device,) + tuple(one(r) for r in rels)
 
 
 class _Graph:
@@ -672,15 +887,16 @@ class _Graph:
     Python, so no wrapper counts its launches in ``_build.LAUNCHES``;
     the device trace does (``kernels.ops.traced_launches``)."""
 
-    def __init__(self, fn, rels: Sequence[Relation]):
-        device = rels[0].device
+    def __init__(self, fn, rels: Sequence):
+        device = _relation(rels[0]).device
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             fn(rels)
         torch.cuda.current_stream(device).wait_stream(side)
         # Static inputs live outside the graph pool, so no plan's
-        # intermediates can alias them.
+        # intermediates can alias them.  A partitioned input stays one
+        # (its spec tells the plan its parts are sorted).
         self.inputs = [r.map(torch.clone) for r in rels]
         pool = _POOLS.get(device)
         if pool is None:
@@ -689,8 +905,15 @@ class _Graph:
         # torch.cuda.graph synchronizes and empties the allocator's
         # cache first, which returns the warm-up's memory for the pool
         # to grow into.
-        with torch.cuda.graph(self.graph, pool=pool):
-            self.outputs = fn(self.inputs)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.outputs = fn(self.inputs)
+        except BaseException:
+            # A failed capture can leave the allocator recording into
+            # the pool ("already recording to mempool_id" on the next
+            # capture): later graphs start a fresh pool.
+            _POOLS.pop(device, None)
+            raise
 
     def replay(self, rels: Sequence[Relation]):
         """Copy ``rels`` in, replay, and return clones of the outputs.
@@ -702,6 +925,7 @@ class _Graph:
         replay is enqueued: another graph's replay may reuse the static
         outputs' memory only after these clones have been taken."""
         for static, rel in zip(self.inputs, rels):
+            static, rel = _relation(static), _relation(rel)
             static.valid.copy_(rel.valid)
             for n, c in static.cols.items():
                 c.copy_(rel.cols[n])
@@ -740,18 +964,16 @@ class CompiledPlan:
 
     def check_ported(self) -> None:
         """Raise, without running anything, the ``NotImplementedError``
-        of an option this port does not have yet (``strategy=
-        "mapside"``: A11; ``overlap_chunks > 1``: A9)."""
-        if self.strategy == "mapside":
-            raise _mapside_not_ported()
+        of an option this port does not have yet (``overlap_chunks >
+        1``: A9)."""
         _check_options(self.opts.get("overlap_chunks", 1))
 
-    def __call__(self, rels: Sequence[Relation]):
+    def __call__(self, rels: Sequence):
         rels = list(rels)
         self.check_ported()
-        if not rels[0].valid.is_cuda:
+        if not _relation(rels[0]).valid.is_cuda:
             return self._execute(rels)
-        sig = _signature(rels)
+        sig = input_signature(rels)
         graph = self._graphs.get(sig)
         if graph is None:
             graph = _Graph(self._execute, rels)
@@ -969,9 +1191,10 @@ def default_chain_caps(stats: ChainStats, grid_shape: Sequence[int],
 
 def default_mapside_caps(stats: ChainStats, num_partitions: int,
                          slack: int = 6) -> ChainCaps:
-    """Size ChainCaps for the map-side cascade (a later slice): mid/out
-    hold the per-device share of the intermediates, recv/local keep
-    base-relation sizing."""
+    """Size ChainCaps for :func:`mapside_cascade_chain`: base relations
+    never leave their stored partitions on proven hops, so mid/out hold
+    the per-device share of the intermediates; recv/local keep
+    base-relation sizing for the hops that do move tuples."""
 
     def per(total):
         return int(total * slack / num_partitions) + 256

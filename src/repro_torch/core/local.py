@@ -57,6 +57,31 @@ def partition_ranks(bucket: torch.Tensor, valid: torch.Tensor, n_buckets: int
     return order, sorted_key, rank
 
 
+def partition(rel: Relation, bucket: torch.Tensor, n_buckets: int,
+              cap_per_bucket: int) -> Tuple[Relation, torch.Tensor]:
+    """Scatter tuples into (n_buckets, cap_per_bucket) send buffers —
+    the map-phase emit (tuple -> destination reducer).
+
+    Returns a Relation whose columns are (..., n_buckets,
+    cap_per_bucket), each bucket's rows in their input order, plus an
+    overflow flag per leading index (any bucket fuller than its
+    capacity; the rows past it are dropped)."""
+    order, sorted_bucket, rank = partition_ranks(bucket, rel.valid, n_buckets)
+    live = sorted_bucket < n_buckets
+    in_range = live & (rank < cap_per_bucket)
+    overflow = (live & ~in_range).any(-1)
+    total = n_buckets * cap_per_bucket
+    dest = torch.where(in_range, sorted_bucket.to(torch.int64)
+                       * cap_per_bucket + rank, total)
+    shape = (*rel.valid.shape[:-1], n_buckets, cap_per_bucket)
+
+    def scatter(col: torch.Tensor) -> torch.Tensor:
+        return scatter_drop(col.gather(-1, order), dest, total).view(shape)
+
+    return Relation({n: scatter(c) for n, c in rel.cols.items()},
+                    scatter_drop(in_range, dest, total).view(shape)), overflow
+
+
 # ---------------------------------------------------------------------------
 # Local equi-join (the reduce-side join within one reducer)
 # ---------------------------------------------------------------------------

@@ -1,27 +1,36 @@
-"""Partitioning manifests and the co-partitioning proof — the host-side
-half of the map-side-join storage layout.
+"""Hash-partitioned, key-sorted relations — the map-side-join storage
+layout.
 
-Port of ``src/repro/core/partition.py`` for this slice: the
-:class:`PartitionSpec` manifest of a stored relation (hash-partitioned
-into ``num_partitions`` slices by ``bucket_hash(key, P, salt)``, each
-slice sorted by (validity, key)), :func:`co_partitioned` (two specs
-prove a zero-shuffle merge join), :func:`chain_partitioning` (a chain
-query's specs compiled into the
-:class:`~repro_torch.core.cost_model.ChainPartitioning` certificate the
-planner prices) and :func:`default_part_capacity`.  The plan verifier
-and the query engine need these; none touches a tensor.
+Port of ``src/repro/core/partition.py``.  A :class:`PartitionedRelation`
+holds a relation bucketed into ``num_partitions`` slices by
+``bucket_hash(key, num_partitions, salt)``, every slice sorted by
+(validity, key).  When two relations are *co-partitioned* (same key
+role, partition count, salt and key dtype, both sorted), partition p of
+one joins only partition p of the other: the join needs no shuffle, and
+the per-partition merge join skips the stored side's sort
+(``presorted_r``).  On a 1-D ``SimGrid`` of ``num_partitions`` devices
+the ``(P, part_capacity)`` columns *are* the per-device placement.
 
-The device half — ``PartitionedRelation``, ``partition_relation``,
-``repartition`` and ``verify_partition_layout`` — waits for the
-partitioned store and the map-side cascade (ROADMAP A11).
+The proof side: :class:`PartitionSpec` (the manifest of one stored
+relation), :func:`co_partitioned` (two specs prove a zero-shuffle merge
+join) and :func:`chain_partitioning` (a chain query's specs compiled
+into the :class:`~repro_torch.core.cost_model.ChainPartitioning`
+certificate the planner prices and the executor trusts).  Persistence
+is ``repro_torch.checkpoint.save_partitioned`` / ``load_partitioned``,
+byte-compatible with the JAX package's store.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
+import torch
+
+from . import hashing
 from .cost_model import ChainPartitioning
+from .local import partition, sort_rows
+from .relation import Relation, flatten_leading
 
 #: Identifier of the hash family behind every PartitionSpec — recorded
 #: in persisted manifests so a future hash change cannot silently break
@@ -66,6 +75,124 @@ class PartitionSpec:
     @property
     def sorted(self) -> bool:
         return self.sort_order == SORT_ASCENDING
+
+
+@dataclasses.dataclass
+class PartitionedRelation:
+    """A relation laid out as (..., num_partitions, part_capacity)
+    columns plus its :class:`PartitionSpec`.  On a 1-D grid of
+    ``num_partitions`` devices, ``parts`` *is* the per-device placement
+    — feeding it to the executor costs zero shuffle.  Axes ahead of the
+    partition axis are lanes (the query engine's batched tenants)."""
+
+    parts: Relation
+    spec: PartitionSpec
+
+    @property
+    def num_partitions(self) -> int:
+        return int(self.parts.valid.shape[-2])
+
+    @property
+    def part_capacity(self) -> int:
+        return int(self.parts.valid.shape[-1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts.device
+
+    def count(self) -> torch.Tensor:
+        """Valid tuples over every partition (a device tensor; one per
+        lane)."""
+        return self.parts.valid.sum((-2, -1))
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]
+            ) -> "PartitionedRelation":
+        """Apply one tensor function to every column and the mask (a
+        device move: ``prel.map(lambda t: t.to(device))``); the spec is
+        kept."""
+        return PartitionedRelation(self.parts.map(fn), self.spec)
+
+    def to_flat(self) -> Relation:
+        """Collapse back to one flat relation (partition order)."""
+        return flatten_leading(self.parts)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype in the JAX package's spelling (``"int32"``), so
+    specs compare equal across the two packages."""
+    return str(dtype).replace("torch.", "")
+
+
+def partition_relation(rel: Relation, key: str, num_partitions: int, *,
+                       salt: int = 0, part_capacity: Optional[int] = None,
+                       ) -> Tuple[PartitionedRelation, torch.Tensor]:
+    """Partition a flat relation by ``bucket_hash(key, P, salt)`` and
+    sort every partition by (validity, key) — the write path of the
+    partitioned store.
+
+    ``part_capacity`` defaults to the input capacity (lossless for any
+    key distribution); tighter capacities return overflow=True when a
+    bucket spills.  Leading axes of ``rel`` are kept ahead of the
+    partition axis.  Returns (partitioned relation, overflow flag)."""
+    cap = rel.capacity if part_capacity is None else part_capacity
+    bucket = hashing.bucket_hash(rel.col(key), num_partitions, salt=salt)
+    parts, overflow = partition(rel, bucket, num_partitions, cap)
+    spec = PartitionSpec(key=key, num_partitions=num_partitions, salt=salt,
+                         key_dtype=_dtype_name(rel.col(key).dtype))
+    return PartitionedRelation(sort_rows(parts, key), spec), overflow
+
+
+def repartition(prel: PartitionedRelation, *, salt: int,
+                key: Optional[str] = None,
+                num_partitions: Optional[int] = None,
+                part_capacity: Optional[int] = None,
+                ) -> Tuple[PartitionedRelation, torch.Tensor]:
+    """Re-bucket a stored relation under a new salt (and optionally a
+    new key or partition count).
+
+    Streaming ingest rotates the salt on every committed micro-batch: a
+    certificate minted against the previous version then fails the
+    :func:`co_partitioned` proof (salts differ), so a cached plan can
+    never merge-join fresh partitions with a stale layout.
+
+    ``part_capacity`` defaults to the current per-partition capacity
+    when the partition count is unchanged, else to the lossless flat
+    capacity.  Returns (repartitioned relation, overflow flag)."""
+    P = prel.num_partitions if num_partitions is None else num_partitions
+    key = prel.spec.key if key is None else key
+    flat = prel.to_flat()
+    if part_capacity is None:
+        part_capacity = (prel.part_capacity if P == prel.num_partitions
+                         else flat.capacity)
+    return partition_relation(flat, key, P, salt=salt,
+                              part_capacity=part_capacity)
+
+
+def verify_partition_layout(prel: PartitionedRelation) -> bool:
+    """Recheck the layout invariant a :class:`PartitionedRelation`'s
+    spec asserts: every valid row lives in the partition its key hashes
+    to, and (for ``sorted`` specs) every partition holds its valid rows
+    first, keys ascending.
+
+    The store already CRC-verifies bytes on read; this is the semantic
+    audit above it — bytes can round-trip perfectly and still describe
+    a layout the spec no longer proves (wrong salt, foreign manifest, a
+    partial rewrite).  It is host-synchronous by design (it returns a
+    Python bool): a recovery-path check, called on loaded data and
+    never inside a function that ``jit_execute_*`` captures."""
+    spec = prel.spec
+    key = prel.parts.cols[spec.key]
+    valid = prel.parts.valid
+    bucket = hashing.bucket_hash(key, spec.num_partitions, salt=spec.salt)
+    rows = torch.arange(valid.shape[-2], dtype=bucket.dtype,
+                        device=valid.device)[:, None]
+    ok = torch.where(valid, bucket == rows, True).all()
+    if spec.sorted and valid.shape[-1] > 1:
+        pair = valid[..., 1:] & valid[..., :-1]
+        ok = ok & (valid[..., 1:] <= valid[..., :-1]).all()
+        ok = ok & torch.where(pair, key[..., :-1] <= key[..., 1:],
+                              True).all()
+    return bool(ok)
 
 
 def default_part_capacity(n_rows: int, num_partitions: int,

@@ -9,7 +9,12 @@
 // through the BlockSpec map).  Query row i sits at absolute position
 // i + (Skv - Sq); it sees key j iff j < Skv and, when causal, j <= that
 // position.  A row that sees no key returns zeros, as the TPU kernel's
-// does.  Head dims 64 and 128.
+// does.  Head dims: 64 and 128 on "wgmma"; any d <= 256 on "simt" and
+// "split", through instances at the widths the configs use (16, 32, 64,
+// 128, 192) and 256, where a d between two takes the wider instance
+// with its columns past d masked (split's widths are multiples of 32).
+// Other float dtypes reach "simt" and "split" as float32 (the wrapper
+// casts in and out).
 //
 // Bound on the H100: operations for prefill (4·Sq·Skv·D per head,
 // about halved by the causal band), bytes for decode (the KV cache is
@@ -35,16 +40,18 @@
 //     puts the query heads of one kv group side by side, so they share
 //     its K/V in L2.  The output is stored from registers.
 //   * "split" (both dtypes, Sq <= 16: decode and short chunks): grid
-//     (KV splits, B·Hkv, row blocks).  A CTA loads its chunk of one kv
-//     head's K/V once, for all (Hq/Hkv)·Sq query rows of that kv group
+//     (KV splits, B·Hkv, row blocks), launched per 65,535 kv heads.
+//     A CTA loads its chunk of one kv head's K/V once, for all
+//     (Hq/Hkv)·Sq query rows of that kv group
 //     (up to 64 a CTA), one warp a row at a time and one lane a key,
 //     on the CUDA cores (the path is bound by bytes), and writes
 //     (m, l, acc[D]) per row in float32 to a workspace.  A second
 //     kernel merges the splits in split order with log-sum-exp weights:
 //     deterministic, no atomics; a split where a row sees no key weighs
 //     0, a row that sees none at all gets zeros.
-//   * "simt" (float32, Sq > 16): one CTA of 256 threads
-//     per (head, query tile) on the CUDA cores in float32, the
+//   * "simt" (float32, Sq > 16; and bfloat16 at head dims wgmma lacks):
+//     one CTA of 256 threads per (head, query tile), launched per
+//     65,535 heads, on the CUDA cores in float32, the
 //     (m, l, acc) recurrence in registers, probabilities through shared
 //     memory.  wgmma has no full-float32 mode, and TF32 operands would
 //     miss the reference's 2e-5 tolerance, so float32 prefill stays
@@ -53,6 +60,7 @@
 // A kernel that cannot launch returns its CUDA error; a tensor map that
 // cannot be encoded returns kNoEncoder or kBadTensorMap.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
@@ -67,6 +75,7 @@ namespace {
 constexpr int kNoEncoder = -1;     // cuTensorMapEncodeTiled not found
 constexpr int kBadTensorMap = -2;  // cuTensorMapEncodeTiled refused
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr long long kMaxGridY = 65535;   // grid.y limit: more rows, more launches
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -87,7 +96,6 @@ from_float<__nv_bfloat16>(float x) {
 
 namespace simt {
 
-
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
@@ -100,12 +108,16 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP);
 };
 
-template <typename T, int D, int BQ, int BK>
+// Grid (query tiles, B·Hq), B·Hq <= 65535 (the launcher cuts larger
+// batches into such launches).  An instance of width D takes head dim
+// d == D (kMasked false) or any d < D (kMasked true: rows of d
+// elements, the columns past d read as zeros and not written).
+template <typename T, int D, int BQ, int BK, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int hq,
-                       int hkv, long long sq, long long skv, float scale,
-                       int causal) {
+                       int hkv, long long sq, long long skv, int d,
+                       float scale, int causal) {
   constexpr int TPR = kThreads / BQ;   // lanes per query row
   constexpr int CPT = BK / TPR;        // scores per lane per tile
   constexpr int DPT = D / TPR;         // output columns per lane
@@ -119,19 +131,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid / TPR;
   const int t = tid % TPR;
-  const long long bh = blockIdx.y;
+  const long long ld = kMasked ? d : D;           // row stride of q/k/v/o
   const long long q0 = static_cast<long long>(blockIdx.x) * BQ;
-  const long long kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const long long offset = skv - sq;
-  const T* qb = q + (bh * sq + q0) * D;
-  const T* kb = k + kvh * skv * D;
-  const T* vb = v + kvh * skv * D;
+
+  const long long bh = blockIdx.y;
+  const long long kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const T* qb = q + (bh * sq + q0) * ld;
+  const T* kb = k + kvh * skv * ld;
+  const T* vb = v + kvh * skv * ld;
 
   for (int idx = tid; idx < BQ * D; idx += kThreads) {
     const int rr = idx / D, dd = idx % D;
-    qs[rr * (D + 1) + dd] =
-        q0 + rr < sq ? to_float(qb[static_cast<long long>(rr) * D + dd]) * scale
-                     : 0.0f;
+    const bool in = q0 + rr < sq && (!kMasked || dd < d);
+    qs[rr * (D + 1) + dd] = in ? to_float(qb[rr * ld + dd]) * scale : 0.0f;
   }
 
   const long long n_kt = (skv + BK - 1) / BK;
@@ -149,11 +162,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (long long kt = 0; kt < n_live; ++kt) {
     const long long k0 = kt * BK;
-    __syncthreads();                   // previous tile's K/V reads done
+    __syncthreads();                 // previous tile's K/V reads done
     for (int idx = tid; idx < BK * D; idx += kThreads) {
       const int rr = idx / D, dd = idx % D;
-      const bool in = k0 + rr < skv;
-      const long long at = (k0 + rr) * D + dd;
+      const bool in = k0 + rr < skv && (!kMasked || dd < d);
+      const long long at = (k0 + rr) * ld + dd;
       ks[rr * (D + 1) + dd] = in ? to_float(kb[at]) : 0.0f;
       vs[rr * D + dd] = in ? to_float(vb[at]) : 0.0f;
     }
@@ -165,7 +178,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int dd = 0; dd < D; ++dd) {
       const float qd = qs[r * (D + 1) + dd];
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) s[i] += qd * ks[(t + TPR * i) * (D + 1) + dd];
+      for (int i = 0; i < CPT; ++i)
+        s[i] += qd * ks[(t + TPR * i) * (D + 1) + dd];
     }
     float mx = kNegInf;
     bool ok[CPT];
@@ -193,7 +207,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       rowsum += __shfl_xor_sync(0xffffffffu, rowsum, off);
     l = l * corr + rowsum;
     m = m_new;
-    __syncwarp();                      // the row's P is written by its lanes
+    __syncwarp();                    // the row's P is written by its lanes
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[j] *= corr;
     for (int c = 0; c < BK; ++c) {
@@ -205,39 +219,55 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (q0 + r < sq) {
     const float inv = 1.0f / fmaxf(l, 1e-30f);
-    T* ob = o + (bh * sq + q0 + r) * D;
+    T* ob = o + (bh * sq + q0 + r) * ld;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) ob[t + TPR * j] = from_float<T>(acc[j] * inv);
+    for (int j = 0; j < DPT; ++j) {
+      const int col = t + TPR * j;
+      if (!kMasked || col < d) ob[col] = from_float<T>(acc[j] * inv);
+    }
   }
 }
 
-template <typename T, int D, int BQ, int BK>
+template <typename T, int D, int BQ, int BK, bool kMasked>
 int launch_tile(const T* q, const T* k, const T* v, T* o, long long b,
                 long long hq, long long hkv, long long sq, long long skv,
-                float scale, long long causal, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D, BQ, BK>;
+                long long d, float scale, long long causal,
+                cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, D, BQ, BK, kMasked>;
   const size_t smem = Smem<D, BQ, BK>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>((sq + BQ - 1) / BQ),
-            static_cast<unsigned>(b * hq));
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, static_cast<int>(hq),
-                                           static_cast<int>(hkv), sq, skv,
-                                           scale, static_cast<int>(causal));
-  return static_cast<int>(cudaGetLastError());
+  // Batches cut into launches of at most 65,535 (batch, head) rows.
+  const long long step = std::max(1LL, kMaxGridY / hq);
+  for (long long b0 = 0; b0 < b; b0 += step) {
+    const long long nb = std::min(step, b - b0);
+    dim3 grid(static_cast<unsigned>((sq + BQ - 1) / BQ),
+              static_cast<unsigned>(nb * hq));
+    kernel<<<grid, kThreads, smem, stream>>>(
+        q + b0 * hq * sq * d, k + b0 * hkv * skv * d, v + b0 * hkv * skv * d,
+        o + b0 * hq * sq * d, static_cast<int>(hq), static_cast<int>(hkv),
+        sq, skv, static_cast<int>(d), scale, static_cast<int>(causal));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, T* o, long long b,
              long long hq, long long hkv, long long sq, long long skv,
-             float scale, long long causal, long long bq, long long bk,
-             cudaStream_t stream) {
+             long long d, float scale, long long causal, long long bq,
+             long long bk, cudaStream_t stream) {
 #define TILE(BQ_, BK_)                                                     \
   if (bq == BQ_ && bk == BK_)                                              \
-    return launch_tile<T, D, BQ_, BK_>(q, k, v, o, b, hq, hkv, sq, skv,   \
-                                       scale, causal, stream);
+    return d == D ? launch_tile<T, D, BQ_, BK_, false>(                    \
+                        q, k, v, o, b, hq, hkv, sq, skv, d, scale, causal, \
+                        stream)                                            \
+                  : launch_tile<T, D, BQ_, BK_, true>(                     \
+                        q, k, v, o, b, hq, hkv, sq, skv, d, scale, causal, \
+                        stream);
   TILE(16, 64) TILE(64, 64)
 #undef TILE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -250,15 +280,14 @@ int launch(const T* q, const T* k, const T* v, T* o, long long b,
            long long bk, void* stream_ptr) {
   if (b == 0 || hq == 0 || sq == 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (d == 64)
-    return launch_d<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                           bq, bk, stream);
-  if (d == 128)
-    return launch_d<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                            bq, bk, stream);
+#define WIDTH(D_)                                                          \
+  if (d <= D_)                                                             \
+    return launch_d<T, D_>(q, k, v, o, b, hq, hkv, sq, skv, d, scale,      \
+                           causal, bq, bk, stream);
+  WIDTH(16) WIDTH(32) WIDTH(64) WIDTH(128) WIDTH(192) WIDTH(256)
+#undef WIDTH
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
 
 }  // namespace simt
 
@@ -538,15 +567,19 @@ struct Smem {
   }
 };
 
-// Grid (splits, B·Hkv, row blocks).  Row r of a kv group is query head
-// r / Sq of the group at query index r % Sq.  Writes, per row and
-// split, m (the running max in log2 units), l and acc[D] unnormalised.
-template <typename T, int D>
+// Grid (splits, B·Hkv, row blocks), B·Hkv <= 65535 (the launcher cuts
+// larger batches into such launches, each with its own workspace
+// region).  Row r of a kv group is query head r / Sq of the group at
+// query index r % Sq.  Writes, per row and split, m (the
+// running max in log2 units), l and acc[d] unnormalised (rows of d
+// floats in ws_acc).  kMasked as in simt: an instance of width D for a
+// head dim d < D, scalar loads, columns past d zero and not written.
+template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 attention_split(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, float* __restrict__ ws_acc,
                 float* __restrict__ ws_ml, int hq, int hkv, int sq, int skv,
-                int chunk, float scale_log2, int causal) {
+                int d, int chunk, float scale_log2, int causal) {
   constexpr int kVec = 16 / sizeof(T);          // elements a 16-byte load
   constexpr int kCols = D / 32;                 // output columns a lane
   extern __shared__ float smem[];
@@ -557,14 +590,18 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
   float* qs = smem;                             // [rows][D], scaled
   float* ks = qs + rows * D;                    // [kKeys][D + 1]
   float* vs = ks + Smem<D>::kK;                 // [kKeys][D]
-
-  const int bkv = blockIdx.y;
-  const int b = bkv / hkv, kvh = bkv % hkv;
+  const int ld = kMasked ? d : D;               // row stride of q/k/v
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int offset = skv - sq;
   const long long total_rows = static_cast<long long>(gridDim.y) * group * sq;
-  const T* kb = k + static_cast<long long>(bkv) * skv * D;
-  const T* vb = v + static_cast<long long>(bkv) * skv * D;
+  const int c0 = blockIdx.x * chunk;
+  int c1 = min(skv, c0 + chunk);
+  if (causal) c1 = min(c1, sq + offset);        // no row sees further
+
+  const int bkv = blockIdx.y;
+  const int b = bkv / hkv, kvh = bkv % hkv;
+  const T* kb = k + static_cast<long long>(bkv) * skv * ld;
+  const T* vb = v + static_cast<long long>(bkv) * skv * ld;
 
   // Global row of local row r: ((b·Hq + h)·Sq + i).
   auto out_row = [&](int r) {
@@ -573,12 +610,9 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
   };
   for (int idx = tid; idx < rows * D; idx += kThreads) {
     const int r = idx / D, dd = idx % D;
-    qs[idx] = to_float(q[out_row(r) * D + dd]) * scale_log2;
+    qs[idx] = !kMasked || dd < d
+                  ? to_float(q[out_row(r) * ld + dd]) * scale_log2 : 0.0f;
   }
-
-  const int c0 = blockIdx.x * chunk;
-  int c1 = min(skv, c0 + chunk);
-  if (causal) c1 = min(c1, sq + offset);        // no row sees further
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
 #pragma unroll
@@ -590,22 +624,32 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int t0 = c0; t0 < c1; t0 += kKeys) {
-    __syncthreads();                  // previous tile's reads done (and qs)
-    for (int idx = tid; idx < kKeys * D / kVec; idx += kThreads) {
-      const int key = idx / (D / kVec), dd = (idx % (D / kVec)) * kVec;
-      const long long at = static_cast<long long>(t0 + key) * D + dd;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (t0 + key < c1) {
-        kr = __ldg(reinterpret_cast<const uint4*>(kb + at));
-        vr = __ldg(reinterpret_cast<const uint4*>(vb + at));
+    __syncthreads();                // previous tile's reads done (and qs)
+    if constexpr (kMasked) {
+      for (int idx = tid; idx < kKeys * D; idx += kThreads) {
+        const int key = idx / D, dd = idx % D;
+        const long long at = static_cast<long long>(t0 + key) * ld + dd;
+        const bool in = t0 + key < c1 && dd < d;
+        ks[key * (D + 1) + dd] = in ? to_float(kb[at]) : 0.0f;
+        vs[key * D + dd] = in ? to_float(vb[at]) : 0.0f;
       }
-      float kf[kVec], vf[kVec];
-      unpack(kr, kf);
-      unpack(vr, vf);
+    } else {
+      for (int idx = tid; idx < kKeys * D / kVec; idx += kThreads) {
+        const int key = idx / (D / kVec), dd = (idx % (D / kVec)) * kVec;
+        const long long at = static_cast<long long>(t0 + key) * D + dd;
+        uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+        if (t0 + key < c1) {
+          kr = __ldg(reinterpret_cast<const uint4*>(kb + at));
+          vr = __ldg(reinterpret_cast<const uint4*>(vb + at));
+        }
+        float kf[kVec], vf[kVec];
+        unpack(kr, kf);
+        unpack(vr, vf);
 #pragma unroll
-      for (int x = 0; x < kVec; ++x) {
-        ks[key * (D + 1) + dd + x] = kf[x];
-        vs[key * D + dd + x] = vf[x];
+        for (int x = 0; x < kVec; ++x) {
+          ks[key * (D + 1) + dd + x] = kf[x];
+          vs[key * D + dd + x] = vf[x];
+        }
       }
     }
     __syncthreads();
@@ -614,7 +658,7 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
       const int r = warp + kWarps * j;
-      if (r >= rows) continue;                  // warp-uniform
+      if (r >= rows) continue;                // warp-uniform
       const int pos = (r_base + r) % sq + offset;
       float s = 0.0f;
 #pragma unroll 16
@@ -631,7 +675,7 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = exp2f(m[j] - shift);
       const float p = exp2f(s - shift);
       m[j] = m_new;
-      l[j] = l[j] * corr + p;                   // this lane's keys only
+      l[j] = l[j] * corr + p;                 // this lane's keys only
 #pragma unroll
       for (int e = 0; e < kCols; ++e) acc[j][e] *= corr;
 #pragma unroll 8
@@ -654,7 +698,10 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
       lt += __shfl_xor_sync(0xffffffffu, lt, x);
     const long long w = blockIdx.x * total_rows + out_row(r);
 #pragma unroll
-    for (int e = 0; e < kCols; ++e) ws_acc[w * D + lane + 32 * e] = acc[j][e];
+    for (int e = 0; e < kCols; ++e) {
+      const int col = lane + 32 * e;
+      if (!kMasked || col < d) ws_acc[w * ld + col] = acc[j][e];
+    }
     if (lane == 0) {
       ws_ml[2 * w] = m[j];
       ws_ml[2 * w + 1] = lt;
@@ -665,11 +712,11 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
 // Grid (B·Hq·Sq rows, D / 32): warp w of a CTA sums the splits
 // s ≡ w (mod kWarps) for 32 columns of one row, one a lane; the warps'
 // partial sums are then added in warp order.  Weights 2^(m_s − max m).
-template <typename T, int D>
+template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 attention_combine(const float* __restrict__ ws_acc,
                   const float* __restrict__ ws_ml, T* __restrict__ o,
-                  long long total_rows, int n_split) {
+                  long long total_rows, int n_split, int d) {
   extern __shared__ float weight[];           // [n_split]
   __shared__ float red[kWarps];
   __shared__ float part_acc[kWarps][32];
@@ -677,6 +724,8 @@ attention_combine(const float* __restrict__ ws_acc,
   const long long row = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c = blockIdx.y * 32 + lane;
+  const int ld = kMasked ? d : D;
+  const bool live = !kMasked || c < d;         // a column past d: no output
 
   float mx = -INFINITY;
   for (int s = tid; s < n_split; s += kThreads)
@@ -690,7 +739,7 @@ attention_combine(const float* __restrict__ ws_acc,
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[w]);
   if (mx == -INFINITY) {                       // the row sees no key
-    if (warp == 0) o[row * D + c] = from_float<T>(0.0f);
+    if (warp == 0 && live) o[row * ld + c] = from_float<T>(0.0f);
     return;
   }
   for (int s = tid; s < n_split; s += kThreads)
@@ -701,12 +750,12 @@ attention_combine(const float* __restrict__ ws_acc,
   for (int s = warp; s < n_split; s += kWarps) {
     const long long w = s * total_rows + row;
     l = fmaf(weight[s], ws_ml[2 * w + 1], l);
-    acc = fmaf(weight[s], ws_acc[w * D + c], acc);
+    if (live) acc = fmaf(weight[s], ws_acc[w * ld + c], acc);
   }
   part_acc[warp][lane] = acc;
   if (lane == 0) part_l[warp] = l;
   __syncthreads();
-  if (warp == 0) {
+  if (warp == 0 && live) {
     l = part_l[0];
     acc = part_acc[0][lane];
 #pragma unroll
@@ -714,7 +763,7 @@ attention_combine(const float* __restrict__ ws_acc,
       l += part_l[w];
       acc += part_acc[w][lane];
     }
-    o[row * D + c] = from_float<T>(acc / l);
+    o[row * ld + c] = from_float<T>(acc / l);
   }
 }
 
@@ -798,37 +847,52 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kMasked>
 int launch_split(const T* q, const T* k, const T* v, T* o, float* ws_acc,
                  float* ws_ml, long long b, long long hq, long long hkv,
-                 long long sq, long long skv, float scale, long long causal,
-                 long long n_split, long long chunk, cudaStream_t stream) {
+                 long long sq, long long skv, long long d, float scale,
+                 long long causal, long long n_split, long long chunk,
+                 cudaStream_t stream) {
   const long long n_rows = hq / hkv * sq;
   const int rows = static_cast<int>(n_rows < split::kRows ? n_rows
                                                           : split::kRows);
-  auto kernel = split::attention_split<T, D>;
+  auto kernel = split::attention_split<T, D, kMasked>;
   const int smem = static_cast<int>(split::Smem<D>::bytes(rows));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(n_split),
-                  static_cast<unsigned>(b * hkv),
-                  static_cast<unsigned>((n_rows + split::kRows - 1)
-                                        / split::kRows));
-  kernel<<<grid, split::kThreads, smem, stream>>>(
-      q, k, v, ws_acc, ws_ml, static_cast<int>(hq), static_cast<int>(hkv),
-      static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(chunk),
-      scale * kLog2e, static_cast<int>(causal));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total_rows = b * hq * sq;
-  split::attention_combine<T, D>
-      <<<dim3(static_cast<unsigned>(total_rows), D / 32), split::kThreads,
-         static_cast<size_t>(n_split) * sizeof(float), stream>>>(
-          ws_acc, ws_ml, o, total_rows, static_cast<int>(n_split));
-  return static_cast<int>(cudaGetLastError());
+  // Batches cut into launches of at most 65,535 kv heads; launch c's
+  // workspace is its own (splits, rows) block after the ones before.
+  const long long step = std::max(1LL, kMaxGridY / hkv);
+  for (long long b0 = 0; b0 < b; b0 += step) {
+    const long long nb = std::min(step, b - b0);
+    const dim3 grid(static_cast<unsigned>(n_split),
+                    static_cast<unsigned>(nb * hkv),
+                    static_cast<unsigned>((n_rows + split::kRows - 1)
+                                          / split::kRows));
+    kernel<<<grid, split::kThreads, smem, stream>>>(
+        q + b0 * hq * sq * d, k + b0 * hkv * skv * d, v + b0 * hkv * skv * d,
+        ws_acc, ws_ml, static_cast<int>(hq), static_cast<int>(hkv),
+        static_cast<int>(sq), static_cast<int>(skv), static_cast<int>(d),
+        static_cast<int>(chunk), scale * kLog2e, static_cast<int>(causal));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long total_rows = nb * hq * sq;
+    split::attention_combine<T, D, kMasked>
+        <<<dim3(static_cast<unsigned>(total_rows), D / 32), split::kThreads,
+           static_cast<size_t>(n_split) * sizeof(float), stream>>>(
+            ws_acc, ws_ml, o + b0 * hq * sq * d, total_rows,
+            static_cast<int>(n_split), static_cast<int>(d));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ws_acc += n_split * total_rows * d;
+    ws_ml += n_split * total_rows * 2;
+  }
+  return 0;
 }
 
+// The split path's widths: a multiple of 32 (a column a lane); a head
+// dim between two takes the wider instance, masked.
 template <typename T>
 int split_d(const T* q, const T* k, const T* v, T* o, float* ws_acc,
             float* ws_ml, long long b, long long hq, long long hkv,
@@ -837,12 +901,17 @@ int split_d(const T* q, const T* k, const T* v, T* o, float* ws_acc,
             void* stream_ptr) {
   if (b == 0 || hq == 0 || sq == 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (d == 64)
-    return launch_split<T, 64>(q, k, v, o, ws_acc, ws_ml, b, hq, hkv, sq,
-                               skv, scale, causal, n_split, chunk, stream);
-  if (d == 128)
-    return launch_split<T, 128>(q, k, v, o, ws_acc, ws_ml, b, hq, hkv, sq,
-                                skv, scale, causal, n_split, chunk, stream);
+#define WIDTH(D_)                                                          \
+  if (d <= D_)                                                             \
+    return d == D_                                                         \
+        ? launch_split<T, D_, false>(q, k, v, o, ws_acc, ws_ml, b, hq,     \
+                                     hkv, sq, skv, d, scale, causal,       \
+                                     n_split, chunk, stream)               \
+        : launch_split<T, D_, true>(q, k, v, o, ws_acc, ws_ml, b, hq, hkv, \
+                                    sq, skv, d, scale, causal, n_split,    \
+                                    chunk, stream);
+  WIDTH(32) WIDTH(64) WIDTH(128) WIDTH(192) WIDTH(256)
+#undef WIDTH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

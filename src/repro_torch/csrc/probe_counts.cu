@@ -24,9 +24,14 @@
 //     16-byte groups 512 bytes apart, so each warp-wide load or store
 //     is one contiguous span.  A group that is not aligned, or crosses
 //     a row end, takes scalar loads and stores;
-//   * grid (CTAs, B) of 256 threads, as many CTAs as the card holds at
-//     once; each warp walks its row's tiles with a stride and loads its
-//     next tile while it counts this one.  No CTA barrier anywhere;
+//   * rows of at least 8 tiles, at most 65,535 of them: grid (CTAs, B)
+//     of 256 threads, as many CTAs as the card holds at once; each warp
+//     walks its row's tiles with a stride and loads its next tile while
+//     it counts this one.  More such rows: a 1-D grid whose warps walk
+//     the batch's (row, tile) pairs.  Shorter rows (under 2,048
+//     queries, any count of them): a thread a query, a binary search of
+//     its row in device memory (a warp tile's window would cost more
+//     than it saves).  No CTA barrier anywhere;
 //   * shuffles give the tile's qmin and qmax; the warp finds
 //     lower_bound(qmin) and upper_bound(qmax) in the row by a 32-ary
 //     search (31 pivots a step, one load a lane): the window [wlo, whi)
@@ -57,6 +62,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32 * kItems;       // queries of a warp tile
 constexpr int kWindow = 512;             // keys a warp stages in shared memory
 constexpr unsigned kFull = 0xffffffffu;
+constexpr long long kMaxGridY = 65535;   // grid.y limit
 
 template <typename K> struct Limits;
 template <> struct Limits<int> {
@@ -256,110 +262,199 @@ __device__ __forceinline__ void tile_counts(const K* __restrict__ krow,
   }
 }
 
+// Where a row's tiles lie: tile k of the row holds queries
+// [k * kTile - shift, (k + 1) * kTile - shift), starting on 16-byte
+// boundaries of the query row.  A lane's groups lie 512 bytes of
+// queries apart and its tiles kTile queries apart, so its alignment is
+// the same in all of them.
 template <typename K>
-__global__ void __launch_bounds__(kThreads)
-probe_counts_kernel(const K* __restrict__ queries,
-                    const K* __restrict__ sorted_keys, int* __restrict__ lo,
-                    int* __restrict__ hi, long long nq, long long nr) {
-  __shared__ K windows[kThreads / 32][kWindow];
+struct RowTiles {
+  const K* qrow;
+  const K* krow;
+  int* lrow;
+  int* hrow;
+  long long shift, n_tiles;
+  bool aligned;
 
-  const long long b = blockIdx.y;
-  K* window = windows[threadIdx.x >> 5];
-  const K* qrow = queries + b * nq;
-  const K* krow = sorted_keys + b * nr;
-  int* lrow = lo + b * nq;
-  int* hrow = hi + b * nq;
+  __device__ __forceinline__ RowTiles(const K* queries, const K* sorted_keys,
+                                      int* lo, int* hi, long long b,
+                                      long long nq, long long nr)
+      : qrow(queries + b * nq), krow(sorted_keys + b * nr),
+        lrow(lo + b * nq), hrow(hi + b * nq) {
+    shift = static_cast<long long>(
+        (reinterpret_cast<uintptr_t>(qrow) & 15) / sizeof(K));
+    n_tiles = (nq + shift + kTile - 1) / kTile;
+    const long long first = item<K>(-shift, 0);
+    aligned = (reinterpret_cast<uintptr_t>(qrow + first) & 15) == 0
+              && ((reinterpret_cast<uintptr_t>(lrow + first)
+                   | reinterpret_cast<uintptr_t>(hrow + first))
+                  & (4 * kVec<K> - 1)) == 0;
+  }
+};
 
-  // Warp tiles start on 16-byte boundaries of the query row; tile k
-  // holds queries [k * kTile - shift, (k + 1) * kTile - shift).  A
-  // lane's groups lie 512 bytes of queries apart and its tiles kTile
-  // queries apart, so its alignment is the same in all of them.
-  const long long shift = static_cast<long long>(
-      (reinterpret_cast<uintptr_t>(qrow) & 15) / sizeof(K));
-  const long long n_tiles = (nq + shift + kTile - 1) / kTile;
-  const long long first = item<K>(-shift, 0);
-  const bool aligned =
-      (reinterpret_cast<uintptr_t>(qrow + first) & 15) == 0
-      && ((reinterpret_cast<uintptr_t>(lrow + first)
-           | reinterpret_cast<uintptr_t>(hrow + first))
-          & (4 * kVec<K> - 1)) == 0;
+// The answer of a warp's last one-value tile: the sentinel tail's tiles
+// after the first need no search.
+template <typename K>
+struct TailCache {
+  bool valid = false;
+  K q = 0;
+  long long lo = 0, hi = 0;
+};
+
+// Counts and stores one warp tile whose queries q start at t0.
+template <typename K>
+__device__ __forceinline__ void count_tile(const RowTiles<K>& row,
+                                           long long t0, long long nq,
+                                           long long nr,
+                                           const K (&q)[kItems], K* window,
+                                           TailCache<K>& cache) {
+  // The tile's qmin and qmax (rows outside [0, nq) count for neither).
+  K qmin = Limits<K>::highest(), qmax = Limits<K>::lowest();
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = item<K>(t0, j);
+    if (i >= 0 && i < nq) {
+      qmin = min(qmin, q[j]);
+      qmax = max(qmax, q[j]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(kFull, qmin, off));
+    qmax = max(qmax, __shfl_xor_sync(kFull, qmax, off));
+  }
+
+  // The window, unless the tile repeats the cached value.
+  long long wlo, whi;
+  if (cache.valid && qmin == qmax && qmin == cache.q) {
+    wlo = cache.lo;
+    whi = cache.hi;
+  } else {
+    wlo = warp_bound<false>(row.krow, nr, qmin);
+    whi = warp_bound<true>(row.krow, nr, qmax);
+    if (qmin == qmax) cache = {true, qmin, wlo, whi};
+  }
+
+  int l[kItems], h[kItems];
+  tile_counts(row.krow, window, q, qmin, qmax, wlo, whi, l, h);
+  store_tile<K>(row.lrow, row.hrow, t0, nq, row.aligned, l, h);
+}
+
+// The counts of row b: the warp tiles of the row, walked by this
+// CTA's warps with a stride of the row's CTAs; each warp loads its next
+// tile while it counts this one.
+template <typename K>
+__device__ __forceinline__ void probe_row(const K* __restrict__ queries,
+                                          const K* __restrict__ sorted_keys,
+                                          int* __restrict__ lo,
+                                          int* __restrict__ hi, long long b,
+                                          long long nq, long long nr,
+                                          K* window) {
+  const RowTiles<K> row(queries, sorted_keys, lo, hi, b, nq, nr);
   const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-
-  // The answer of the warp's last one-value tile: the sentinel tail's
-  // tiles after the first need no search.
-  bool cached = false;
-  K cq = 0;
-  long long clo = 0, chi = 0;
-
+  TailCache<K> cache;
   long long tile = static_cast<long long>(blockIdx.x) * kWarps
                    + (threadIdx.x >> 5);
   K q[kItems], next[kItems];
-  if (tile < n_tiles) load_tile(qrow, tile * kTile - shift, nq, aligned, q);
-  for (; tile < n_tiles; tile += stride) {              // warp-uniform
-    const long long t0 = tile * kTile - shift;
-    // Load the warp's next tile while this one is counted.
+  if (tile < row.n_tiles)
+    load_tile(row.qrow, tile * kTile - row.shift, nq, row.aligned, q);
+  for (; tile < row.n_tiles; tile += stride) {          // warp-uniform
     const long long after = tile + stride;
-    if (after < n_tiles)
-      load_tile(qrow, after * kTile - shift, nq, aligned, next);
-
-    // The tile's qmin and qmax (rows outside [0, nq) count for neither).
-    K qmin = Limits<K>::highest(), qmax = Limits<K>::lowest();
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const long long i = item<K>(t0, j);
-      if (i >= 0 && i < nq) {
-        qmin = min(qmin, q[j]);
-        qmax = max(qmax, q[j]);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      qmin = min(qmin, __shfl_xor_sync(kFull, qmin, off));
-      qmax = max(qmax, __shfl_xor_sync(kFull, qmax, off));
-    }
-
-    // The window, unless the tile repeats the cached value.
-    long long wlo, whi;
-    if (cached && qmin == qmax && qmin == cq) {
-      wlo = clo;
-      whi = chi;
-    } else {
-      wlo = warp_bound<false>(krow, nr, qmin);
-      whi = warp_bound<true>(krow, nr, qmax);
-      if (qmin == qmax) {
-        cached = true;
-        cq = qmin;
-        clo = wlo;
-        chi = whi;
-      }
-    }
-
-    int l[kItems], h[kItems];
-    tile_counts(krow, window, q, qmin, qmax, wlo, whi, l, h);
-    store_tile<K>(lrow, hrow, t0, nq, aligned, l, h);
+    if (after < row.n_tiles)
+      load_tile(row.qrow, after * kTile - row.shift, nq, row.aligned, next);
+    count_tile(row, tile * kTile - row.shift, nq, nr, q, window, cache);
 #pragma unroll
     for (int j = 0; j < kItems; ++j) q[j] = next[j];
   }
 }
 
-// CTAs the card holds at once, for one 256-thread CTA's resources.
-// The runtime is asked once a device: the answer never changes while the
-// process runs, and the kernel is launched on every fused join.
+// Grid (CTAs, B), B <= 65,535 rows of at least kWarps tiles: one row a
+// CTA row.  No CTA barrier: each warp moves on alone.
 template <typename K>
-int resident_ctas(int* out) {
-  constexpr int kDevices = 64;
-  static std::atomic<int> cache[kDevices];      // 0: not asked yet
+__global__ void __launch_bounds__(kThreads)
+probe_counts_kernel(const K* __restrict__ queries,
+                    const K* __restrict__ sorted_keys, int* __restrict__ lo,
+                    int* __restrict__ hi, long long nq, long long nr) {
+  __shared__ K windows[kWarps][kWindow];
+  probe_row(queries, sorted_keys, lo, hi, static_cast<long long>(blockIdx.y),
+            nq, nr, windows[threadIdx.x >> 5]);
+}
+
+// More than 65,535 rows of at least kWarps tiles: a 1-D grid whose
+// warps walk the (row, tile) pairs of the whole batch with a stride, a
+// warp a tile.  `per_row` is the most tiles a row spans (a row whose
+// shift needs fewer skips the last).
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+probe_counts_tiles_kernel(const K* __restrict__ queries,
+                          const K* __restrict__ sorted_keys,
+                          int* __restrict__ lo, int* __restrict__ hi,
+                          long long batch, long long nq, long long nr,
+                          long long per_row) {
+  __shared__ K windows[kWarps][kWindow];
+  K* window = windows[threadIdx.x >> 5];
+  const long long tasks = batch * per_row;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  TailCache<K> cache;
+  long long cached_row = -1;
+  for (long long t = static_cast<long long>(blockIdx.x) * kWarps
+                     + (threadIdx.x >> 5);
+       t < tasks; t += stride) {                        // warp-uniform
+    const long long b = t / per_row, tile = t - b * per_row;
+    const RowTiles<K> row(queries, sorted_keys, lo, hi, b, nq, nr);
+    if (tile >= row.n_tiles) continue;
+    if (b != cached_row) {              // the cache holds one row's keys
+      cache.valid = false;
+      cached_row = b;
+    }
+    const long long t0 = tile * kTile - row.shift;
+    K q[kItems];
+    load_tile(row.qrow, t0, nq, row.aligned, q);
+    count_tile(row, t0, nq, nr, q, window, cache);
+  }
+}
+
+// Short rows (fewer than kWarps tiles): a thread a query, walked over
+// the whole batch with a grid stride.  A warp tile's window search and
+// staging cost more than they save where a row holds a tile or two:
+// here each thread binary-searches its row's keys in device memory
+// (lower_bound, then upper_bound from it); a warp's queries lie in one
+// or two rows, so its loads share the rows' cache lines.
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+probe_counts_queries_kernel(const K* __restrict__ queries,
+                            const K* __restrict__ sorted_keys,
+                            int* __restrict__ lo, int* __restrict__ hi,
+                            long long batch, long long nq, long long nr) {
+  const long long total = batch * nq;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads
+                     + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
+    const K* krow = sorted_keys + (i / nq) * nr;
+    const K q = __ldg(queries + i);
+    const long long a = bound<false>(krow, 0, nr, q);
+    lo[i] = static_cast<int>(a);
+    hi[i] = static_cast<int>(bound<true>(krow, a, nr, q));
+  }
+}
+
+// CTAs the card holds at once, for one 256-thread CTA's resources.
+// The runtime is asked once a device and kernel: the answer never
+// changes while the process runs, and the kernel is launched on every
+// fused join.
+template <typename Kernel>
+int resident_ctas(Kernel kernel, std::atomic<int> (&cache)[64], int* out) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < kDevices && (*out = cache[device].load()) > 0) return 0;
+  if (device < 64 && (*out = cache[device].load()) > 0) return 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, probe_counts_kernel<K>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *out = std::max(1, sms * per_sm);
-  if (device < kDevices) cache[device].store(*out);
+  if (device < 64) cache[device].store(*out);
   return 0;
 }
 
@@ -367,16 +462,43 @@ template <typename K>
 int launch(const K* queries, const K* sorted_keys, int* lo, int* hi,
            long long batch, long long nq, long long nr, void* stream) {
   if (batch == 0 || nq == 0) return 0;
+  static std::atomic<int> rows_cache[64], tiles_cache[64],  // 0: not asked
+      queries_cache[64];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // One more tile than nq needs covers the shift of a misaligned row.
+  const long long tiles = (nq + 3 + kTile - 1) / kTile;
   int resident = 0;
-  const int err = resident_ctas<K>(&resident);
-  if (err != 0) return err;
-  // One more tile than nq needs covers the shift of a misaligned row;
-  // the warps of a row walk its tiles with a stride, all resident at once.
-  const long long ctas = ((nq + 3 + kTile - 1) / kTile + kWarps - 1) / kWarps;
-  const long long per_row = std::max(1LL, std::min(ctas, resident / batch));
-  dim3 grid(static_cast<unsigned>(per_row), static_cast<unsigned>(batch));
-  probe_counts_kernel<K><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      queries, sorted_keys, lo, hi, nq, nr);
+  if (batch <= kMaxGridY && tiles >= kWarps) {
+    // The warps of a row walk its tiles with a stride, all resident at
+    // once.
+    const int err = resident_ctas(probe_counts_kernel<K>, rows_cache,
+                                  &resident);
+    if (err != 0) return err;
+    const long long ctas = (tiles + kWarps - 1) / kWarps;
+    const long long per_row = std::max(1LL, std::min(ctas, resident / batch));
+    probe_counts_kernel<K><<<dim3(static_cast<unsigned>(per_row),
+                                  static_cast<unsigned>(batch)),
+                             kThreads, 0, st>>>(queries, sorted_keys, lo, hi,
+                                                nq, nr);
+  } else if (tiles < kWarps) {
+    const int err = resident_ctas(probe_counts_queries_kernel<K>,
+                                  queries_cache, &resident);
+    if (err != 0) return err;
+    const long long ctas = std::min<long long>(
+        resident, (batch * nq + kThreads - 1) / kThreads);
+    probe_counts_queries_kernel<K><<<static_cast<unsigned>(ctas), kThreads, 0,
+                                     st>>>(queries, sorted_keys, lo, hi, batch,
+                                           nq, nr);
+  } else {
+    const int err = resident_ctas(probe_counts_tiles_kernel<K>, tiles_cache,
+                                  &resident);
+    if (err != 0) return err;
+    const long long ctas = std::min<long long>(
+        resident, (batch * tiles + kWarps - 1) / kWarps);
+    probe_counts_tiles_kernel<K><<<static_cast<unsigned>(ctas), kThreads, 0,
+                                   st>>>(queries, sorted_keys, lo, hi, batch,
+                                         nq, nr, tiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,17 +4,22 @@ The system has no weights; its state is relations and plans.  A
 relation crosses between the JAX package and this one as a dict of
 numpy columns plus the validity mask (``np.asarray`` on each field of
 the JAX ``Relation``), grid axes included; a capacity budget crosses as
-its dataclass fields.
+its dataclass fields.  A stored relation crosses as its partitions'
+columns, ``(P, part_capacity)``, plus its spec's fields — or on disk:
+the two packages' partitioned stores share one format
+(``repro_torch.checkpoint``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from .core.executor import ChainCaps
+from .core.partition import PartitionedRelation, PartitionSpec
 from .core.relation import Relation
 
 
@@ -39,3 +44,25 @@ def caps_from_fields(**fields) -> ChainCaps:
     """A port ChainCaps from the fields of the JAX package's one (e.g.
     ``caps_from_fields(**dataclasses.asdict(jax_caps))``)."""
     return ChainCaps(**fields)
+
+
+def partitioned_from_numpy(cols: Mapping[str, np.ndarray], valid: np.ndarray,
+                           spec: Any, device) -> PartitionedRelation:
+    """A port PartitionedRelation from ``(P, part_capacity)`` numpy
+    columns and mask and a spec — a port :class:`PartitionSpec`, or any
+    object with the same fields (the JAX package's), or their dict."""
+    if not isinstance(spec, PartitionSpec):
+        fields = spec if isinstance(spec, Mapping) else \
+            dataclasses.asdict(spec)
+        spec = PartitionSpec(**fields)
+    return PartitionedRelation(relation_from_numpy(cols, valid, device),
+                               spec)
+
+
+def partitioned_to_numpy(prel: PartitionedRelation
+                         ) -> Tuple[Dict[str, np.ndarray], np.ndarray,
+                                    Dict[str, Any]]:
+    """``(cols, valid, spec fields)`` of a stored relation, on the
+    host."""
+    cols, valid = relation_to_numpy(prel.parts)
+    return cols, valid, dataclasses.asdict(prel.spec)

@@ -5,12 +5,18 @@ Port of ``src/repro/kernels/flash_attention.py``.  On CUDA tensors
 ``csrc/flash_attention.cu`` (port of the TPU kernel ``flash_attention``),
 as :func:`_plan` picks it:
 
-  * ``"wgmma"`` — bfloat16 prefill on the tensor cores, fed by TMA;
+  * ``"wgmma"`` — bfloat16 prefill at head dims 64 and 128 on the
+    tensor cores, fed by TMA;
   * ``"split"`` — short query blocks (Sq <= ``SPLIT_MAX_SQ``: decode and
-    short chunks) in both dtypes, the kv axis split over CTAs and the
-    splits merged by a second kernel;
-  * ``"simt"`` — float32 prefill on the CUDA cores (wgmma has no
+    short chunks), the kv axis split over CTAs and the splits merged by
+    a second kernel;
+  * ``"simt"`` — every other prefill on the CUDA cores (wgmma has no
     full-float32 mode).
+
+"split" and "simt" take any head dim up to ``MAX_HEAD_DIM``; float32
+and (on "split") bfloat16 run natively, and every other float dtype
+runs through float32: cast in, float32 inside, cast out, as the
+reference accumulates.
 
 With no key (Skv = 0) every row sees nothing: zeros, and no launch.
 
@@ -30,9 +36,14 @@ from . import _build, ref
 
 __all__ = ["flash_attention"]
 
-#: Head widths and input dtypes the kernels are compiled for.
-HEAD_DIMS = (64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+#: Head widths of the tensor-core path; "simt" and "split" take any
+#: head dim up to MAX_HEAD_DIM.
+WGMMA_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 256
+#: Dtypes each path runs natively; other float dtypes run as float32.
+NATIVE_DTYPES = {"wgmma": (torch.bfloat16,),
+                 "split": (torch.float32, torch.bfloat16),
+                 "simt": (torch.float32,)}
 #: The "simt" kernel's kv tile, whatever ``block_kv`` asks for.
 KV_TILE = 64
 #: Query blocks up to this length take the split path.
@@ -58,14 +69,14 @@ def _plan(sq: int, skv: int, hq: int, hkv: int, d: int,
           dtype: torch.dtype, batch: int = 1) -> Plan:
     """The kernel for one call with Skv >= 1.  Short query blocks split
     the kv axis into whole key tiles, as many as give every SM two CTAs
-    where Skv allows it."""
-    del d                               # both head dims take every path
+    where Skv allows it; bfloat16 prefill at the tensor cores' head dims
+    takes "wgmma"; every other prefill "simt"."""
     if sq <= SPLIT_MAX_SQ:
         row_blocks = -(-(hq // hkv) * sq // SPLIT_ROWS)
         target = -(-2 * SM_COUNT // (batch * hkv * row_blocks))
         chunk = SPLIT_KEYS * max(1, skv // (SPLIT_KEYS * target))
         return Plan("split", -(-skv // chunk), chunk)
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         return Plan("wgmma", 1, skv)
     return Plan("simt", 1, skv)
 
@@ -86,22 +97,22 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention kernel needs CUDA tensors")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v are on different devices")
-    if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
-                        f"q, k, v of one dtype, got {q.dtype} / {k.dtype} / "
-                        f"{v.dtype}")
+    if not q.dtype.is_floating_point or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention kernel takes float q, k, v of one "
+                        f"dtype, got {q.dtype} / {k.dtype} / {v.dtype}")
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head dim 1.."
+                         f"{MAX_HEAD_DIM}, got {d}")
     if q.numel() == 0 or skv == 0:
         return torch.zeros_like(q)      # no query or no key: no launch
     plan = _plan(sq, skv, hq, hkv, d, q.dtype, batch=b)
-    grid_rows = {"simt": b * hq, "split": b * hkv}.get(plan.path, 0)
-    if grid_rows > 65535:
-        raise ValueError(f"flash_attention {plan.path} kernel takes at most "
-                         f"65535 (batch, head) rows, got {grid_rows}")
+    if q.dtype not in NATIVE_DTYPES[plan.path]:
+        # float32 inside either way: cast in, run the float32 kernel,
+        # round once on the way out.
+        return _flash_attention_cuda(q.float(), k.float(), v.float(), causal,
+                                     scale, block_q, block_kv).to(q.dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % TMA_ALIGN:

@@ -91,9 +91,6 @@ def _probe_counts_cuda(queries: torch.Tensor, sorted_keys: torch.Tensor
     if nr >= 2 ** 31:
         raise ValueError(f"int32 counts cannot hold {nr} keys")
     batch = queries.numel() // nq if nq else 0
-    if batch > 65535:
-        raise ValueError(f"probe_counts kernel takes at most 65535 rows, "
-                         f"got {batch}")
     lo = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
     hi = torch.empty_like(lo)
     if batch == 0 or nq == 0:

@@ -32,8 +32,11 @@ from . import _build, ref
 __all__ = ["hash_histogram", "bucket_counts", "partition_offsets"]
 
 #: Buckets the kernels' shared-memory histogram holds (48 KB of ints,
-#: the default dynamic shared-memory limit of a block).
-MAX_BUCKETS = 12288
+#: the default dynamic shared-memory limit of a block); past it they
+#: count with global atomics into a zeroed output.
+SHARED_BUCKETS = 12288
+#: The most buckets the kernels take, as the reference does: an int32.
+MAX_BUCKETS = 2 ** 31 - 1
 
 
 def _salt_constant(salt: int) -> int:
@@ -61,9 +64,13 @@ def _check_cuda_inputs(keys: torch.Tensor, valid: torch.Tensor,
     if not 1 <= n_buckets <= MAX_BUCKETS:
         raise ValueError(f"hash_histogram kernel takes 1..{MAX_BUCKETS} "
                          f"buckets, got {n_buckets}")
-    if keys.numel() // max(keys.shape[-1], 1) > 65535:
-        raise ValueError(f"hash_histogram kernel takes at most 65535 rows, "
-                         f"got {tuple(keys.shape[:-1])}")
+
+
+def _output(shape, n_buckets: int, device) -> torch.Tensor:
+    """The kernels' output: zeroed where they count into it with global
+    atomics (more buckets than a shared histogram holds)."""
+    alloc = torch.zeros if n_buckets > SHARED_BUCKETS else torch.empty
+    return alloc(*shape, dtype=torch.int32, device=device)
 
 
 def _hash_histogram_cuda(keys: torch.Tensor, valid: torch.Tensor,
@@ -79,8 +86,8 @@ def _hash_histogram_cuda(keys: torch.Tensor, valid: torch.Tensor,
     if n_blocks >= 2 ** 31:
         raise ValueError(f"hash_histogram kernel grid too large: {batch} "
                          f"rows x {n_blocks} blocks")
-    out = torch.empty(*keys.shape[:-1], n_blocks, n_buckets,
-                      dtype=torch.int32, device=keys.device)
+    out = _output((*keys.shape[:-1], n_blocks, n_buckets), n_buckets,
+                  keys.device)
     if batch == 0 or n_blocks == 0:
         return out                      # nothing to count: no launch
     lib = _build.library("hash_histogram")
@@ -105,8 +112,7 @@ def _bucket_counts_cuda(keys: torch.Tensor, valid: torch.Tensor,
     if batch == 0:                      # nothing to count: no launch
         return torch.zeros(*keys.shape[:-1], n_buckets, dtype=torch.int32,
                            device=keys.device)
-    out = torch.empty(*keys.shape[:-1], n_buckets, dtype=torch.int32,
-                      device=keys.device)
+    out = _output((*keys.shape[:-1], n_buckets), n_buckets, keys.device)
     lib = _build.library("hash_histogram")
     fn = lib.bucket_counts_i32 if keys.dtype == torch.int32 \
         else lib.bucket_counts_i64

@@ -35,11 +35,16 @@ __all__ = ["KERNEL_SYMBOLS", "LAUNCHES", "reset_launches", "traced_launches"]
 #: call (one of them, by path), as they appear in a device trace.  A
 #: second function of the same call (``segment_sum_fixup``,
 #: ``attention_combine``) is left out, so a trace counts in the unit of
-#: :data:`LAUNCHES`.
+#: :data:`LAUNCHES`.  Past 65,535 leading rows the per-block histogram
+#: and the attention kernels launch once per 65,535 rows (the grid's
+#: y limit), so there a trace counts more than the wrappers;
+#: ``probe_counts``, ``segment_sum`` and ``bucket_counts`` stay one
+#: launch a call.
 KERNEL_SYMBOLS = {
     "segment_sum": ("segment_sum_tiles",),
-    "probe_counts": ("probe_counts_kernel",),
-    "hash_histogram": ("hist_blocks", "bucket_totals"),
+    "probe_counts": ("probe_counts_kernel", "probe_counts_tiles_kernel",
+                     "probe_counts_queries_kernel"),
+    "hash_histogram": ("hist_blocks", "bucket_totals", "bucket_totals_rows"),
     "flash_attention": ("flash_attention_kernel", "attention_wgmma",
                         "attention_split"),
 }

@@ -63,9 +63,6 @@ def _segment_sum_cuda(values: torch.Tensor, segment_ids: torch.Tensor,
     lead = values.shape[:-1]
     n = values.shape[-1]
     batch = values.numel() // n if n else 0
-    if batch > 65535:
-        raise ValueError(f"segment_sum kernel takes at most 65535 rows, "
-                         f"got {batch}")
     out = torch.zeros(*lead, num_segments, dtype=torch.float32,
                       device=values.device)
     if batch == 0 or n == 0:

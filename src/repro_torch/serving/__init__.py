@@ -6,8 +6,10 @@ execution over the join engine.
   QueryRequest / ServeResult       — the request/response surface
   ServingStats                     — hits, latency percentiles, qps
 
+Chain requests with a current partitioning certificate run map-side
+over prebuilt ``PartitionedRelation`` inputs (``submit(rels=...)``).
 Not ported yet: ``ServingStore`` (streaming ingest over the partitioned
-store, ROADMAP A11) and the LM ``Engine`` / ``ServeConfig`` (A15).
+store, ROADMAP A13) and the LM ``Engine`` / ``ServeConfig`` (A15).
 """
 
 from .engine import (CachedPlan, CircuitOpen, DeadlineExceeded, PlanRejected,

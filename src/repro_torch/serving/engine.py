@@ -22,10 +22,13 @@ latency, and throughput.
 
 The engine's device is explicit: ``QueryEngine(cfg, device=None)``
 builds every input on the GPU unless the caller asks for another
-device (``device="cpu"`` runs the plain versions of the kernels).  Not
-ported yet: the map-side strategy (a request whose plan resolves to it
-fails alone with the executor's ROADMAP A11 error), ``ServingStore``
-(A11) and the LM ``Engine`` (A15).
+device (``device="cpu"`` runs the plain versions of the kernels).  A
+chain request with a current partitioning certificate runs the map-side
+cascade over prebuilt
+:class:`~repro_torch.core.partition.PartitionedRelation` inputs; one
+whose certificate is stale degrades to the shuffle cascade, its
+prebuilt partitions flattened back.  Not ported yet: ``ServingStore``
+(ROADMAP A13) and the LM ``Engine`` (A15).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from ..core import (ChainQuery, JoinQuery, SimGrid, default_chain_caps,
                     jit_execute_chain, jit_execute_query, plan_chain,
                     plan_query, query_stats_exact, scatter_to_grid)
 from ..core.cost_model import ChainPartitioning, ChainStats, QueryStats
-from ..core.executor import ChainCaps, CompiledPlan
+from ..core.executor import ChainCaps, CompiledPlan, input_signature
+from ..core.partition import PartitionedRelation
 from ..core.relation import Relation
 
 AnyStats = Union[QueryStats, ChainStats]
@@ -330,14 +334,20 @@ def _pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
 
 
-def _stack(rels: Sequence[Tuple[Relation, ...]]) -> Tuple[Relation, ...]:
+def _stack(rels: Sequence[Tuple[Any, ...]]) -> Tuple[Any, ...]:
     """The members' inputs on a new leading lane axis, relation by
-    relation."""
-    return tuple(
-        Relation({n: torch.stack([m[j].cols[n] for m in rels])
-                  for n in rels[0][j].cols},
-                 torch.stack([m[j].valid for m in rels]))
-        for j in range(len(rels[0])))
+    relation; partitioned inputs stack their parts to (L, P, cap) under
+    the one spec their group shares (a group's inputs share their
+    executor signature: shapes, dtypes, specs)."""
+    def stack(members):
+        first = members[0]
+        if isinstance(first, PartitionedRelation):
+            return PartitionedRelation(stack([m.parts for m in members]),
+                                       first.spec)
+        return Relation({n: torch.stack([m.cols[n] for m in members])
+                         for n in first.cols},
+                        torch.stack([m.valid for m in members]))
+    return tuple(stack([m[j] for m in rels]) for j in range(len(rels[0])))
 
 
 class QueryEngine:
@@ -688,23 +698,16 @@ class QueryEngine:
                                         grid_shape))
         return tuple(rels)
 
-    @staticmethod
-    def _shape_sig(rels: Tuple[Relation, ...]) -> Tuple:
-        """Every relation's columns in name order, then its mask: shape
-        and dtype of each."""
-        return tuple(
-            tuple((n, tuple(r.cols[n].shape), str(r.cols[n].dtype))
-                  for n in sorted(r.cols))
-            + ((tuple(r.valid.shape), str(r.valid.dtype)),) for r in rels)
-
     # -- submission --------------------------------------------------------
 
     def submit(self, query: JoinQuery, tables: Sequence[Tuple[Any, ...]]
-               = (), *, rels: Optional[Sequence[Relation]] = None,
+               = (), *, rels: Optional[Sequence[Any]] = None,
                **opts: Any) -> ServeResult:
         """Answer one query.  ``rels`` bypasses table preparation with
         pre-built relation inputs, already scattered onto the plan's
-        grid.  Remaining keywords populate :class:`QueryRequest`."""
+        grid, or stored :class:`PartitionedRelation` inputs — the
+        map-side path.  Remaining keywords populate
+        :class:`QueryRequest`."""
         req = QueryRequest(query=query, tables=tables, **opts)
         return self.submit_many([req], prebuilt=[rels])[0]
 
@@ -749,13 +752,12 @@ class QueryEngine:
             entry = None
             try:
                 key, entry, hit = self._resolve(req)
-                # An option the port lacks (a current map-side
-                # certificate: A11) fails this request alone, before
-                # the breaker sees it; the entry stays cached, so a
-                # retry hits instead of replanning.
+                # An option the port lacks (overlap_chunks > 1: A9)
+                # fails this request alone, before the breaker sees it;
+                # the entry stays cached, so a retry hits.
                 entry.run.check_ported()
                 if prebuilt is not None and prebuilt[i] is not None:
-                    rels = tuple(prebuilt[i])
+                    rels = self._adapt_prebuilt(tuple(prebuilt[i]), entry)
                 else:
                     rels = self._prep_inputs(req, entry.grid_shape)
             except CircuitOpen as e:
@@ -776,13 +778,25 @@ class QueryEngine:
                     f"deadline {deadline:g} ms elapsed during planning"))
                 continue
             admitted += 1
-            gkey = (id(entry.run), self._shape_sig(rels))
+            gkey = (id(entry.run), input_signature(rels))
             groups.setdefault(gkey, []).append(
                 (i, hit, entry, rels, t0, deadline, key))
 
         for members in groups.values():
             self._run_group(members, results)
         return results  # type: ignore[return-value]  # every slot is filled
+
+    def _adapt_prebuilt(self, rels: Tuple[Any, ...],
+                        entry: CachedPlan) -> Tuple[Any, ...]:
+        """Prebuilt inputs for a map-side plan are
+        :class:`PartitionedRelation`; when the entry degraded to a
+        shuffle strategy they flatten back to plain grid-scattered
+        relations (exactly the same tuples, no certificate needed)."""
+        if entry.strategy == "mapside":
+            return rels
+        return tuple(scatter_to_grid(r.to_flat(), entry.grid_shape)
+                     if isinstance(r, PartitionedRelation) else r
+                     for r in rels)
 
     def _run_group(self, members: List,
                    results: List[Optional[ServeResult]]) -> None:

@@ -10,8 +10,10 @@ execution — equal to three solo runs for every strategy.  The fixture
 is the README quickstart's 100-edge graph of
 ``tests/test_torch_executor.py``.
 
-The ``cuda``-marked tests capture each plan as a CUDA graph on a GPU
-and skip without one:
+The map-side cascade over stored partitions (``strategy="mapside"``)
+is held to eager here too.  The ``cuda``-marked tests capture each plan
+— the map-side runs among them — as a CUDA graph on a GPU and skip
+without one:
 
     python -m pytest -q -m cuda tests/test_torch_compiled.py
 """
@@ -152,16 +154,44 @@ def test_clear_compiled_caches_drops_every_executable():
                                caps=CAPS) is not f0
 
 
+def mapside_inputs(query, edges=EDGES, parts=4):
+    """The query's relations stored partitioned on their hop keys, the
+    certificate their specs prove, and the planner's hop modes."""
+    flat = [T.edge_relation(s, d, names=query.schema(j), device="cpu")
+            for j, (s, d) in enumerate(edges)]
+    prels = [T.partition_relation(
+        r, query.attrs[1] if j == 0 else query.attrs[j], parts)[0]
+        for j, r in enumerate(flat)]
+    part = T.chain_partitioning(query, [p.spec for p in prels])
+    plan = T.plan_chain(STATS, k=parts, aggregate=query.aggregate is not None,
+                        partitioning=part)
+    return prels, part, plan.hop_modes
+
+
 @pytest.mark.parametrize("option,item", [
     (dict(overlap_chunks=2), "A9"), (dict(strategy="mapside"), "A11")],
     ids=["overlap_chunks", "mapside"])
 def test_later_slices_raise_from_the_call(option, item):
-    """Options of later slices compile (the cache lookup succeeds, so
-    the flips above can miss) and raise ``NotImplementedError`` naming
-    their ROADMAP item when the executable runs."""
+    """An option of a later slice (``overlap_chunks > 1``) compiles (the
+    cache lookup succeeds, so the flips above can miss) and raises
+    ``NotImplementedError`` naming its ROADMAP item when the executable
+    runs.  ``strategy="mapside"`` (A11) is ported: a compiled map-side
+    run over stored partitions equals the eager one."""
     q = T.ChainQuery.three_way()
     kw = dict(strategy="cascade", caps=CAPS)
     kw.update(option)
+    if option.get("strategy") == "mapside":
+        prels, part, modes = mapside_inputs(q)
+        caps = T.default_mapside_caps(STATS, 4, slack=8)
+        kw.update(caps=caps, partitioning=part, hop_modes=modes,
+                  place_output=True)
+        run = T.jit_execute_chain(T.SimGrid((4,)), q, donate=False, **kw)
+        got = run(prels)
+        assert not bool(got[2])
+        assert float(got[1]["shuffled"]) == 0.0
+        assert_equal_results(got, as_numpy(
+            T.execute_chain(T.SimGrid((4,)), q, prels, **kw)))
+        return
     run = T.jit_execute_chain(T.SimGrid(GRID), q, **kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run(port_inputs(q))
@@ -365,3 +395,52 @@ def test_a_capture_error_raises_never_falls_back(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         run(rels)
     assert not run._graphs
+    # The failed capture does not poison the next one.
+    monkeypatch.undo()
+    good = T.jit_execute_chain(T.SimGrid(GRID), q, strategy="cascade",
+                               caps=CAPS, donate=False)
+    assert_equal_results(good(rels), as_numpy(T.execute_chain(
+        T.SimGrid(GRID), q, rels, strategy="cascade", caps=CAPS)))
+
+
+def mixed_mapside_inputs(query, edges=EDGES, parts=4):
+    """R0 grid-scattered, R1 and R2 stored: hop 1 repartitions R0 and,
+    with no ``place_output``, hop 2 the intermediate, by the stored hash
+    (the branch that launches ``bucket_counts`` under
+    ``measure_skew``)."""
+    prels, _, _ = mapside_inputs(query, edges, parts)
+    rels = [T.scatter_to_grid(prels[0].to_flat(), (parts,))] + prels[1:]
+    part = T.chain_partitioning(query, [None] + [p.spec for p in prels[1:]])
+    return rels, part, ("mapside", "mapside")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["MS,3JA", "mixed"])
+def test_mapside_captures_and_replays_equal_to_eager(cuda, kind):
+    """A map-side plan captured over partitioned inputs: three replays
+    equal to eager array for array, and a traced replay launches what
+    the eager run launched."""
+    q = T.ChainQuery.three_way(aggregate=kind == "MS,3JA")
+    rels, part, modes = (mapside_inputs(q) if kind == "MS,3JA"
+                         else mixed_mapside_inputs(q))
+    rels = [r.map(lambda c: c.to(cuda)) for r in rels]
+    kw = dict(strategy="mapside", caps=T.default_mapside_caps(STATS, 4,
+                                                              slack=8),
+              partitioning=part, hop_modes=modes, join_impl="fused",
+              place_output=kind == "MS,3JA", measure_skew=kind == "mixed")
+    ops.reset_launches()
+    eager = T.execute_chain(T.SimGrid((4,)), q, rels, **kw)
+    torch.cuda.synchronize()
+    counted = dict(ops.LAUNCHES)
+    assert not bool(eager[2])
+    want = as_numpy(eager)
+    run = T.jit_execute_chain(T.SimGrid((4,)), q, donate=False, **kw)
+    for _ in range(3):
+        got = run(rels)
+        torch.cuda.synchronize()
+        assert_equal_results(got, want)
+    _, traced = ops.traced_launches(lambda: run(rels))
+    assert traced == counted
+    assert counted["probe_counts"] > 0
+    assert counted["segment_sum"] > 0 or kind == "mixed"
+    assert counted["hash_histogram"] > 0 or kind != "mixed"

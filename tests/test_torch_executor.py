@@ -220,10 +220,11 @@ def test_execute_query_triangle_matches_jax(strategy, grid):
     ids=["measure_skew", "overlap_chunks", "mapside", "shares_skew"])
 def test_later_slices_raise_not_implemented(option):
     """Options of later slices raise ``NotImplementedError`` naming their
-    ROADMAP item.  Two options of this list are ported now:
-    ``measure_skew`` runs and adds ``max_bucket_load``, and
-    ``shares_skew`` raises the reference's ``ValueError`` pointing to
-    its own entry point, ``shares_skew_chain``."""
+    ROADMAP item.  Three options of this list are ported now:
+    ``measure_skew`` runs and adds ``max_bucket_load``, ``shares_skew``
+    raises the reference's ``ValueError`` pointing to its own entry
+    point, ``shares_skew_chain``, and ``mapside`` without a certificate
+    raises the reference's ``ValueError`` asking for one."""
     q = T.ChainQuery.three_way()
     rels = T.chain_edge_inputs(q, EDGES, GRID, device="cpu")
     kw = dict(strategy="cascade", caps=CAPS)
@@ -234,6 +235,9 @@ def test_later_slices_raise_not_implemented(option):
         assert 0 < float(stats["max_bucket_load"]) <= float(stats["read"])
     elif option.get("strategy") == "shares_skew":
         with pytest.raises(ValueError, match="shares_skew_chain"):
+            T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
+    elif option.get("strategy") == "mapside":
+        with pytest.raises(ValueError, match="partitioning and hop_modes"):
             T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -450,8 +450,9 @@ def bucket_counts_once(keys, valid, n_buckets, salt=0):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("n_buckets", [1, 4, 16, 130, 4096, 12288])
 def test_bucket_counts_kernel_matches_plain(cuda, dtype, n_buckets):
-    """The one-launch totals kernel on one CTA a row (stored directly)
-    and on many (atomics onto the zeroed output): a mask with a live
+    """The one-launch totals kernel on a warp a row (rows of 1,007
+    with at most 384 buckets: stored directly), one CTA a row (stored
+    directly) and many (atomics onto the zeroed output): a mask with a live
     prefix, a random mask, an all-false mask, n not a multiple of 16, a
     mask view whose base is not 16-byte aligned; and the per-block
     ``hash_histogram`` on the same inputs."""
@@ -550,14 +551,141 @@ def test_flash_attention_refuses_a_misaligned_tensor(cuda):
 
 @pytest.mark.cuda
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    """What the kernels still refuse after the shape limits were lifted:
+    a float key, no bucket, a head dim past 256, integer attention."""
     keys = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
     valid = torch.ones(2, 8, dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
         thp.hash_histogram(keys.float(), valid, 4, backend="kernel")
     with pytest.raises(ValueError, match="buckets"):
-        thp.hash_histogram(keys, valid, thp.MAX_BUCKETS + 1)
-    q = torch.zeros(1, 2, 4, 32, device=cuda)
+        thp.hash_histogram(keys, valid, 0, backend="kernel")
+    q = torch.zeros(1, 2, 4, tfa.MAX_HEAD_DIM + 1, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 4, 32, device=cuda)
     with pytest.raises(TypeError):
-        tfa.flash_attention(q.half(), q.half(), q.half())
+        tfa.flash_attention(q.int(), q.int(), q.int())
+
+
+# ---------------------------------------------------------------------------
+# The shapes past the kernels' first limits (ROADMAP C3), on the card
+# ---------------------------------------------------------------------------
+
+ROWS = 65_536          # one past the grid's y limit
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_past_65535_rows(cuda):
+    rng = np.random.default_rng(1)
+    ids = np.sort(rng.integers(0, 40, (ROWS, 48)), -1).astype(np.int32)
+    ids[::7, -5:] = 40                             # dropped
+    vals = rng.integers(0, 5, (ROWS, 48)).astype(np.float32)
+    v, i = torch.as_tensor(vals, device=cuda), torch.as_tensor(ids, device=cuda)
+    before = ops.LAUNCHES["segment_sum"]
+    got = tss.segment_sum(v, i, 40)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_sum"] == before + 1
+    assert torch.equal(got, tss.segment_sum(v, i, 40, backend="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [96, 2_100])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_probe_counts_kernel_past_65535_rows(cuda, dtype, nq):
+    """Rows of 96 queries (a thread a query) and of 2,100 (warp tiles,
+    the batch's (row, tile) pairs walked over a 1-D grid)."""
+    rng = np.random.default_rng(2)
+    keys = sorted_with_tail(rng, ROWS, 64, 48, 100, I32_MAX)
+    queries = sorted_with_tail(rng, ROWS, nq, 80, 110, I32_MAX)
+    probe_once(torch.as_tensor(queries, device=cuda).to(dtype),
+               torch.as_tensor(keys, device=cuda).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 2_100])
+@pytest.mark.parametrize("n_buckets", [4, 16])
+def test_hash_histogram_kernels_past_65535_rows(cuda, n_buckets, n):
+    """Rows of 50 (``bucket_counts`` a warp a row) and of 2,100 (a CTA a
+    row, walking the grid's y axis)."""
+    rng = np.random.default_rng(n_buckets)
+    keys = torch.as_tensor(rng.integers(0, 1 << 20, (ROWS, n)),
+                           device=cuda).to(torch.int32)
+    valid = torch.as_tensor(rng.random((ROWS, n)) < 0.7, device=cuda)
+    bucket_counts_once(keys, valid, n_buckets, salt=1)
+    got = thp.hash_histogram(keys, valid, n_buckets, salt=2)
+    assert torch.equal(got, thp.hash_histogram(keys, valid, n_buckets,
+                                                salt=2, backend="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_buckets", [16_384, 100_000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_hash_histogram_kernels_past_the_shared_histogram(cuda, n_buckets,
+                                                          dtype):
+    """More buckets than a shared histogram holds: global atomics into
+    a zeroed output, one CTA a row and many."""
+    rng = np.random.default_rng(n_buckets)
+    for batch, n in ((2, 3_000), (3, 300_001)):
+        keys = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (batch, n)),
+                               device=cuda).to(dtype)
+        valid = torch.as_tensor(rng.random((batch, n)) < 0.8, device=cuda)
+        bucket_counts_once(keys, valid, n_buckets, salt=3)
+    keys, valid = keys[:1, :5_000].contiguous(), valid[:1, :5_000].contiguous()
+    before = ops.LAUNCHES["hash_histogram"]
+    got = thp.hash_histogram(keys, valid, n_buckets)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["hash_histogram"] == before + 1
+    assert torch.equal(got, thp.hash_histogram(keys, valid, n_buckets,
+                                               backend="ref"))
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+
+
+def attention_once(q, k, v, path, causal=True):
+    """One launch on ``path``, held to the plain version."""
+    b, hq, sq, d = q.shape
+    assert tfa._plan(sq, k.shape[2], hq, k.shape[1], d, q.dtype,
+                     batch=b).path == path
+    before = ops.LAUNCHES["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = tfa.flash_attention(q, k, v, causal=causal, backend="ref")
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 80, 192, 256])
+def test_flash_attention_any_head_dim_and_dtype(cuda, d, dtype):
+    """Prefill on "simt" and decode on "split" at head dims the tensor
+    cores' path does not take (80 runs the wider instance, masked), in
+    float32, bfloat16 and float16 (float16 through float32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for causal in (True, False):
+        attention_once(*attention_case(cuda, dtype, 1, 6, 2, 70, 90, d),
+                       "simt", causal)
+        attention_once(*attention_case(cuda, dtype, 2, 6, 2, 3, 300, d),
+                       "split", causal)
+
+
+@pytest.mark.cuda
+def test_flash_attention_float16_at_the_tensor_core_widths(cuda):
+    attention_once(*attention_case(cuda, torch.float16, 1, 4, 2, 100, 100, 64),
+                   "simt")
+    attention_once(*attention_case(cuda, torch.float16, 1, 4, 2, 1, 100, 128),
+                   "split")
+
+
+@pytest.mark.cuda
+def test_flash_attention_past_65535_heads(cuda):
+    """(batch, head) rows past the grid's y limit on "simt" (B·Hq) and
+    "split" (B·Hkv)."""
+    attention_once(*attention_case(cuda, torch.float32, 1024, 64, 64, 17, 17,
+                                   16), "simt")
+    attention_once(*attention_case(cuda, torch.float32, 2048, 64, 32, 1, 8,
+                                   32), "split")

@@ -20,9 +20,10 @@ device="cpu")``:
   R6      queue shedding, deadlines, SLO shedding, submit-site faults
           (a plain hook function through ``set_fault_hook``), the
           plan/compile circuit breaker
-  R7      a stale map-side certificate serves the exact answer through
-          the cascade; a current one fails alone (map-side is ROADMAP
-          A11)
+  R7      a current map-side certificate serves the exact answer over
+          prebuilt stored partitions (solo, cached, and two tenants in
+          one laned execution); a stale one serves it through the
+          cascade, prebuilt partitions flattened back
   V       the verifier copies' findings equal the JAX verifier's
   x64     a torch-only subprocess: the key dtype keys the cache
 """
@@ -43,6 +44,7 @@ import repro.core as J  # noqa: E402
 import repro.serving as JS  # noqa: E402
 import repro_torch.analysis as TA  # noqa: E402
 import repro_torch.core as T  # noqa: E402
+from repro_torch import interop  # noqa: E402
 from repro_torch.serving import (QueryEngine, QueryRequest,  # noqa: E402
                                  QueryServeConfig, engine as engine_mod,
                                  set_fault_hook, stats_signature,
@@ -438,38 +440,95 @@ def test_stale_certificate_serves_exact_via_cascade():
     assert res.ok and res.degraded == "stale_certificate"
     assert res.plan.strategy == "cascade" and eng.stats.degraded == 1
     # Exact: the 3-paths a-b-c-d, counted on the host.
-    (s1, d1), (s2, d2), (s3, d3) = edges
-    n = 16
+    assert weighted_total(cq, res.output) == _paths(edges)
+
+
+def _stored(edges, cq=None, salt=1):
+    """The chain's relations stored as ``certificate()`` proves them:
+    P = 4, salt 1, each on its hop key."""
+    cq = cq or T.ChainQuery.chain(3)
+    return [T.partition_relation(
+        T.edge_relation(s, d, names=cq.schema(j), device="cpu"),
+        cq.attrs[1] if j == 0 else cq.attrs[j], 4, salt=salt)[0]
+        for j, (s, d) in enumerate(edges)]
+
+
+def _paths(edges, n=16):
+    """The 3-paths a-b-c-d of a chain, counted on the host."""
     m = [np.zeros((n, n)) for _ in range(3)]
     for mat, (s, d) in zip(m, edges):
         np.add.at(mat, (s, d), 1)
-    assert weighted_total(cq, res.output) == (m[0] @ m[1] @ m[2]).sum()
+    return (m[0] @ m[1] @ m[2]).sum()
 
 
 def test_current_certificate_fails_alone_naming_a11():
+    """A current certificate (ROADMAP A11, ported) is served map-side
+    over the stored partitions, exactly, beside a co-submitted
+    request."""
     eng = cpu_engine(k=K)
-    _, _, req = _chain_request(certificate())
-    results = eng.submit_many([req, _req(9)])
-    assert not results[0].ok and results[0].error_kind == "error"
-    assert "NotImplementedError" in results[0].error
-    assert "ROADMAP A11" in results[0].error
+    cq, edges, req = _chain_request(certificate())
+    results = eng.submit_many([req, _req(9)],
+                              prebuilt=[_stored(edges), None])
+    assert results[0].ok and results[0].error is None
     assert results[0].plan.strategy == "mapside"
+    assert results[0].plan.algorithm == "MS,3J"
+    assert results[0].measured["hop_shuffled"] == (0.0, 0.0)
+    assert weighted_total(cq, results[0].output) == _paths(edges)
     assert results[1].ok
 
 
 def test_current_certificate_never_opens_the_breaker():
-    """A11 is a missing option, not a build failure: retries past the
-    breaker's threshold hit the cached plan, and a good cache miss
-    still serves."""
+    """Map-side requests past the breaker's threshold: the first plans
+    and captures, every later one hits the cached plan, all exact."""
     eng = cpu_engine(k=K, breaker_threshold=2)
-    _, _, req = _chain_request(certificate())
-    results = [eng.submit_many([req])[0] for _ in range(3)]
-    assert all(not r.ok and r.error_kind == "error"
-               and "ROADMAP A11" in r.error for r in results)
+    cq, edges, req = _chain_request(certificate())
+    prels = _stored(edges)
+    results = [eng.submit_many([req], prebuilt=[prels])[0] for _ in range(3)]
+    assert all(r.ok and weighted_total(cq, r.output) == _paths(edges)
+               for r in results)
     assert [r.cache_hit for r in results] == [False, True, True]
+    assert results[1].measured == results[0].measured
     assert eng.stats.circuit_open == 0
     good = eng.submit_many([_req(12)])[0]
     assert good.ok and not good.cache_hit
+
+
+def test_prebuilt_partitions_batch_and_flatten_on_a_stale_certificate():
+    """Two tenants' stored partitions run as one laned execution, each
+    lane equal to its solo submission; under a stale certificate the
+    same prebuilt partitions flatten back onto the cascade's grid."""
+    eng = cpu_engine(k=K)
+    cq = T.ChainQuery.chain(3)
+    rng = np.random.default_rng(8)
+    tenants = [[(rng.integers(0, 16, 50).astype(np.int32),
+                 rng.integers(0, 16, 50).astype(np.int32))
+                for _ in range(3)] for _ in range(2)]
+    stats = [T.chain_stats_exact(e) for e in tenants]
+    caps = T.ChainCaps(**{
+        f: max(getattr(T.default_mapside_caps(st, 4, slack=8), f)
+               for st in stats)
+        for f in ("recv", "mid", "out", "local", "agg", "join")})
+    reqs = [QueryRequest(cq, e, stats=st, strategy="mapside",
+                         partitioning=certificate(), caps=caps)
+            for e, st in zip(tenants, stats)]
+    prebuilt = [_stored(e) for e in tenants]
+    before = eng.stats.batches
+    batch = eng.submit_many(reqs, prebuilt=prebuilt)
+    assert eng.stats.batches == before + 1
+    for res, req, prels, e in zip(batch, reqs, prebuilt, tenants):
+        assert res.ok and weighted_total(cq, res.output) == _paths(e)
+        solo = eng.submit_many([req], prebuilt=[prels])[0]
+        assert solo.ok and solo.measured == res.measured
+        cols, valid = interop.relation_to_numpy(solo.output)
+        np.testing.assert_array_equal(valid, res.output.valid.numpy())
+        for n, c in cols.items():
+            np.testing.assert_array_equal(c, res.output.cols[n].numpy())
+    stale = dataclasses.replace(reqs[0], partitioning=certificate(
+        key_dtype="int64"))
+    res = eng.submit_many([stale], prebuilt=[prebuilt[0]])[0]
+    assert res.ok and res.degraded == "stale_certificate"
+    assert res.plan.strategy == "cascade"
+    assert weighted_total(cq, res.output) == _paths(tenants[0])
 
 
 # ---------------------------------------------------------------------------
