@@ -50,9 +50,11 @@ except ImportError:  # checkout fallback: src/ relative to this file
 
 import torch
 
-from repro_torch import config
-from repro_torch.checkpoint import load_partitioned, save_partitioned
-from repro_torch.core import (ChainQuery, SimGrid, chain_edge_inputs,
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from bench_common_torch import device_record  # noqa: E402
+from repro_torch import config  # noqa: E402
+from repro_torch.checkpoint import load_partitioned, save_partitioned  # noqa: E402
+from repro_torch.core import (ChainQuery, SimGrid, chain_edge_inputs,  # noqa: E402
                               chain_mapside_placed, chain_mapside_shuffles,
                               chain_partitioning, chain_stats_exact,
                               cost_chain_cascade, cost_chain_mapside,
@@ -167,18 +169,6 @@ def bench_size(m: int, rng, tmpdir, device: torch.device) -> dict:
     }
 
 
-def _device_record(device: torch.device) -> dict:
-    if device.type != "cuda":
-        return {"platform": "cpu"}
-    import subprocess
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "card": card}
-
-
 def run(*, fast: bool, seed: int = 7, device=None,
         out: str = "BENCH_torch_mapside.json") -> dict:
     """Sweep the sizes, write ``out`` and return the report."""
@@ -186,7 +176,7 @@ def run(*, fast: bool, seed: int = 7, device=None,
     sizes = SIZES_FAST if fast else SIZES_FULL
     report = {"benchmark": "mapside_sweep_torch", "n_relations": N,
               "exec_k": EXEC_K, "num_partitions": EXEC_K, "fast": fast,
-              "device": _device_record(device), "sweep": {}}
+              "device": device_record(device), "sweep": {}}
     with tempfile.TemporaryDirectory() as tmpdir:
         for m in sizes:
             rng = np.random.default_rng(seed)

@@ -1309,6 +1309,511 @@ def serve_mapside(w: Workload, prels, cert, eager, per_slot: dict,
 
 
 # ---------------------------------------------------------------------------
+# Phase 3e: the paper's entry points at full width
+# ---------------------------------------------------------------------------
+
+def host_matrix_groups(n: int, mat) -> tuple[np.ndarray, np.ndarray]:
+    """(row·n + col of every nonzero, its value), sorted: a host matrix
+    in the unit ``check_groups`` compares in."""
+    coo = mat.tocoo()
+    keys = coo.row.astype(np.int64) * n + coo.col
+    order = np.argsort(keys)
+    return keys[order], coo.data[order]
+
+
+def check_groups(out, n: int, row: str, col: str, want, what: str) -> int:
+    """The (row, col, p) groups of an aggregated result equal a host
+    matrix's nonzeros, values exactly."""
+    dev = out.valid.device
+    keys = (out.cols[row][out.valid].to(torch.int64) * n
+            + out.cols[col][out.valid].to(torch.int64))
+    keys, order = torch.sort(keys)
+    vals = out.cols["p"][out.valid][order]
+    want_keys = torch.as_tensor(want[0], device=dev)
+    check(torch.equal(keys, want_keys), f"{what}: groups differ from the host")
+    check(torch.equal(vals, torch.as_tensor(want[1].astype(np.float32),
+                                            device=dev)),
+          f"{what}: values differ from the host")
+    return int(keys.numel())
+
+
+def closed_walks(w: Workload) -> float:
+    """trace(A³): the closed 3-walks, from the host A³'s diagonal."""
+    diag = w.a3_keys // w.n_nodes == w.a3_keys % w.n_nodes
+    return float(w.a3_vals[diag].sum())
+
+
+def run_entry_points(w: Workload, device: torch.device) -> dict:
+    """Phase 3e: ``one_round_three_way`` and ``cascade_three_way`` equal
+    to ``execute_chain``'s 1,3J and 2,3J (phase 3's runs) as arrays;
+    ``a_cubed`` 2,3JA and 1,3JA equal to A³ on the host and to the cost
+    model; ``cascade_three_way_agg(include_final_agg=True)`` charging
+    exactly the final Γ's tuples more; ``spmm`` equal to A² on the host;
+    ``triangle_count_cycle`` (k = 16) and ``triangle_count_chain_filter``
+    equal to trace(A³)/3.  Returns the launches per kernel."""
+    import scipy.sparse as sp
+    from repro_torch.core import (ChainQuery, SimGrid, a_cubed,
+                                  cascade_three_way, cascade_three_way_agg,
+                                  chain_edge_inputs, edge_relation,
+                                  execute_chain, one_round_three_way,
+                                  scatter_to_grid, spmm,
+                                  triangle_count_chain_filter,
+                                  triangle_count_cycle)
+    from repro_torch.kernels import ops
+
+    launches = {name: 0 for name in ops.LAUNCHES}
+    grid, c = SimGrid(GRID), w.caps
+    src, dst = w.edges[0]
+    n = w.n_nodes
+    kw = dict(recv_capacity=c.recv, mid_capacity=c.mid,
+              out_capacity=c.out, local_capacity=c.local)
+
+    def counted(fn, what):
+        sync(device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        for kname, k in ops.LAUNCHES.items():
+            launches[kname] += k
+        return result, ms, dict(ops.LAUNCHES)
+
+    for name, wrapper, strategy in (("1,3J", one_round_three_way, "one_round"),
+                                    ("2,3J", cascade_three_way, "cascade")):
+        query = ChainQuery.three_way()
+        rels = chain_edge_inputs(query, w.edges, GRID, device=device)
+        got, ms, counts = counted(lambda: wrapper(grid, *rels, **kw), name)
+        want = execute_chain(grid, query, rels, strategy=strategy, caps=c)
+        check(not bool(got[2]), f"entry {name}: overflow")
+        check(same_result(got, want), f"entry {wrapper.__name__}: differs "
+                                      f"from execute_chain({strategy!r})")
+        total = float(got[1]["read"]) + float(got[1]["shuffled"])
+        check(total == analytic(name, w.stats),
+              f"entry {name}: measured {total} != analytic")
+        log(f"entry {wrapper.__name__} ok: equal to execute_chain "
+            f"{strategy} (output, stats, overflow) total={total:.0f} "
+            f"wall_ms={ms:.1f} launches={counts}")
+        del got, want, rels
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    caps = dict(input=len(src), recv=c.recv, local=c.local, mid=c.mid,
+                agg=c.agg, join=c.join, out=c.out)
+    for name in ("2,3JA", "1,3JA"):
+        (out, stats, ovf), ms, counts = counted(
+            lambda: a_cubed(grid, src, dst, algorithm=name, caps=caps,
+                            device=device), name)
+        check(not bool(ovf), f"entry a_cubed {name}: overflow")
+        groups = check_against_a3(w, out, True)
+        total, want = float(stats["total"]), analytic(name, w.stats)
+        tol = float(np.spacing(np.float32(want))) if want >= 2 ** 24 else 0.0
+        check(abs(total - want) <= tol,
+              f"entry a_cubed {name}: measured {total} != analytic {want}")
+        check(device.type != "cuda" or counts["segment_sum"] > 0,
+              f"entry a_cubed {name}: segment_sum never launched")
+        log(f"entry a_cubed {name} ok: groups={groups} equal to A^3 "
+            f"total={total:.0f} analytic={want:.0f} wall_ms={ms:.1f} "
+            f"launches={counts}")
+        del out, stats
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # include_final_agg: the final Γ reads and shuffles the second hop's
+    # rows, one per nonzero (a, c) of A² and edge out of c.
+    adj = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    a2 = adj @ adj
+    hop2 = float((a2 > 0).astype(np.float64) @ np.asarray(
+        adj.sum(axis=1)).ravel() @ np.ones(n))
+    rels = [scatter_to_grid(edge_relation(src, dst, names=names,
+                                          device=device), GRID)
+            for names in (("a", "b", "v"), ("b", "c", "w"), ("c", "d", "x"))]
+    runs = {}
+    for flag in (False, True):
+        runs[flag], ms, counts = counted(lambda: cascade_three_way_agg(
+            grid, *rels, agg_capacity=c.agg, include_final_agg=flag,
+            join_impl="fused", **kw), "2,3JA")
+        check(not bool(runs[flag][2]), "entry include_final_agg: overflow")
+    (out_f, st_f, _), (out_t, st_t, _) = runs[False], runs[True]
+    check(same_relation(out_f, out_t),
+          "entry include_final_agg: the result changed")
+    # Stats are float32 sums: the charged run adds the final Γ's tuples
+    # to the uncharged sum in float32.
+    extra = {k: float(st_t[k]) - float(st_f[k]) for k in ("read", "shuffled")}
+    check(all(float(st_t[k]) == float(np.float32(float(st_f[k]))
+                                      + np.float32(hop2))
+              for k in ("read", "shuffled")),
+          f"entry include_final_agg: charged {extra} more, the final Γ "
+          f"holds {hop2:.0f} tuples each way")
+    check(device.type != "cuda" or counts["probe_counts"] > 0,
+          "entry include_final_agg: probe_counts never launched")
+    log(f"entry cascade_three_way_agg include_final_agg ok: True charges "
+        f"read +{extra['read']:.0f} shuffled +{extra['shuffled']:.0f} (the "
+        f"final Γ's {hop2:.0f} tuples each way, added in float32) total "
+        f"{float(st_f['total']):.0f} -> {float(st_t['total']):.0f} "
+        f"(fused) wall_ms={ms:.1f} launches={counts}")
+    del runs, out_f, out_t, rels
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    a, b = (scatter_to_grid(edge_relation(src, dst, names=names,
+                                          device=device), GRID)
+            for names in (("a", "b", "v"), ("b", "c", "w")))
+    (out, stats, ovf), ms, counts = counted(lambda: spmm(
+        grid, a, b, recv_capacity=c.recv, mid_capacity=c.mid,
+        out_capacity=c.agg, local_capacity=c.local, join_impl="fused"),
+        "spmm")
+    check(not bool(ovf), "entry spmm: overflow")
+    groups = check_groups(out, n, "a", "c", host_matrix_groups(n, a2),
+                          "entry spmm")
+    log(f"entry spmm ok: groups={groups} equal to A^2 on the host "
+        f"read={float(stats['read']):.0f} shuffled="
+        f"{float(stats['shuffled']):.0f} wall_ms={ms:.1f} launches={counts}")
+    del out, stats, a, b
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    walks = closed_walks(w)
+    (count, plan, stats, ovf), ms, counts = counted(
+        lambda: triangle_count_cycle(src, dst, k=K, device=device),
+        "triangles")
+    check(not bool(ovf), "entry triangle_count_cycle: overflow")
+    check(3 * count == walks, f"entry triangle_count_cycle: {count} != "
+                              f"trace(A^3)/3 = {walks / 3}")
+    log(f"entry triangle_count_cycle ok: {count:.4f} = trace(A^3)/3 "
+        f"({plan.algorithm} {plan.strategy} {plan.grid_shape}) "
+        f"total={float(stats['read']) + float(stats['shuffled']):.0f} "
+        f"wall_ms={ms:.1f} (host statistics and planning included) "
+        f"launches={counts}")
+    (tri, stats, ovf), ms, counts = counted(
+        lambda: triangle_count_chain_filter(grid, src, dst, caps=caps,
+                                            device=device), "chain filter")
+    check(not bool(ovf), "entry triangle_count_chain_filter: overflow")
+    check(round(3 * tri) == walks,
+          f"entry triangle_count_chain_filter: {tri} != {walks / 3}")
+    log(f"entry triangle_count_chain_filter ok: {tri:.4f} = trace(A^3)/3 "
+        f"(2,3JA) wall_ms={ms:.1f} launches={counts}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: streaming ingest (ServingStore)
+# ---------------------------------------------------------------------------
+
+STORE_BATCHES = 4
+STORE_INSERTS, STORE_DELETES = 256, 64
+
+
+def host_counts(src, dst, n: int) -> tuple[float, float]:
+    """(closed 3-walks / 3, 3-paths) of an edge list with multiplicities,
+    from ``scipy.sparse``."""
+    import scipy.sparse as sp
+    adj = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    a2 = adj @ adj
+    walks = float(a2.multiply(adj.T).sum())
+    paths = float((adj @ (adj @ (adj @ np.ones(n)))).sum())
+    return walks / 3.0, paths
+
+
+def run_store(w: Workload, per_slot: dict, seed: int,
+              device: torch.device) -> dict:
+    """Phase 3f: a ``ServingStore`` over R-MAT ``amazon`` at the largest
+    scale whose full triangle and 3-path counts' reckoned bytes fit in
+    the card, with a triangle and a 3-path aggregate; ``STORE_BATCHES``
+    micro-batches of inserts and deletes, each value held to a host
+    recount and each delta cheaper than the recompute it avoids; then a
+    failed batch and a failed reopen that leave the store as it was.
+    Returns the launches per kernel."""
+    from repro_torch.core import JoinQuery, clear_compiled_caches
+    from repro_torch.core import query_stats_exact
+    from repro_torch.data.graphs import DATASETS, rmat_edges
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import FaultInjector, FaultSpec, InjectedCrash
+    from repro_torch.serving import (IngestError, QueryEngine,
+                                     QueryServeConfig, ServingStore)
+
+    clear_compiled_caches()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    top = int(math.log2(w.n_nodes))
+
+    # The load captures the triangle count's graph, then runs the
+    # 3-path count's warm-up beside it: both plans' bytes must fit.
+    def reckon(scale):
+        edges = w.edges[0] if scale == top else rmat_edges(
+            dataclasses.replace(DATASETS["amazon"], scale=scale), seed=seed)
+        slots = sum(largest_slots(serve_caps(q, query_stats_exact(
+            q, [edges] * 3)), (K,))
+            for q in (JoinQuery.triangle(), JoinQuery.chain(3)))
+        return per_slot["cascade"] * slots, edges
+    scale, (src, dst) = fitting_scale("store", top, reckon, device)
+    n = 1 << scale
+    eng = QueryEngine(QueryServeConfig(k=K, join_impl="fused"), device=device)
+    ops.reset_launches()
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store = ServingStore(tmp, eng, num_partitions=K,
+                             drift_threshold=None)
+        store.register_aggregate("tri", "cycle", 3)
+        store.register_aggregate("p3", "chain", 3)
+        store.load_edges(src, dst)
+        load_ms = (time.perf_counter() - t0) * 1e3
+
+        def check_values(when):
+            tri, paths = host_counts(store.src, store.dst, n)
+            got = (store.aggregates["tri"].value,
+                   store.aggregates["p3"].value)
+            # the /3 of the triangle count accumulates float64 ulps
+            check(math.isclose(got[0], tri, rel_tol=1e-9) and
+                  got[1] == paths, f"store {when}: values {got} != host "
+                                   f"recount ({tri}, {paths})")
+            return tri, paths
+        tri, paths = check_values("load")
+        log(f"store ok: R-MAT amazon scale {scale}, {store.n_edges} edges, "
+            f"P={K}; tri={tri:.4f} p3={paths:.0f} equal to the host "
+            f"recount; load + two full counts {load_ms:.1f} ms "
+            f"{memory_line(device)}")
+        # 256 inserts and 64 deletes a batch; a graph under 16,384 edges
+        # (a rehearsal's) takes a batch of a 64th of its edges.
+        n_ins = min(STORE_INSERTS, store.n_edges // 64)
+        n_del = n_ins * STORE_DELETES // STORE_INSERTS
+        for step in range(STORE_BATCHES):
+            cur = set(zip(store.src.tolist(), store.dst.tolist()))
+            ins = set()
+            while len(ins) < n_ins:
+                e = (int(rng.integers(0, n)), int(rng.integers(0, n)))
+                if e not in cur:
+                    ins.add(e)
+            ins = sorted(ins)
+            pick = rng.choice(store.n_edges, size=n_del, replace=False)
+            hits0 = eng.stats.hits
+            t0 = time.perf_counter()
+            rep = store.apply_deltas(
+                inserts=(np.array([a for a, _ in ins]),
+                         np.array([b for _, b in ins])),
+                deletes=(store.src[pick], store.dst[pick]))
+            ms = (time.perf_counter() - t0) * 1e3
+            tri, paths = check_values(f"batch {step}")
+            moved = {name: (a["total"], a["recompute_cost"])
+                     for name, a in rep["aggregates"].items()
+                     if a["mode"] == "delta"}
+            modes = [a["mode"] for a in rep["aggregates"].values()]
+            check(len(moved) == 2, f"store batch {step}: modes {modes}")
+            # Each aggregate's delta cascades moved fewer tuples than its
+            # own recompute, and so did both together since the load
+            # (the engine's savings counters).
+            for name, (delta, recompute) in moved.items():
+                check(delta < recompute,
+                      f"store batch {step}: {name} delta tuples {delta} "
+                      f">= its recompute_cost {recompute}")
+            check(eng.stats.delta_tuples < eng.stats.recompute_tuples,
+                  f"store batch {step}: delta_tuples "
+                  f"{eng.stats.delta_tuples} >= recompute_tuples "
+                  f"{eng.stats.recompute_tuples}")
+            log(f"store batch {step} ok: +{n_ins} -{n_del} "
+                f"v{rep['version']} tri={tri:.4f} p3={paths:.0f} equal to the "
+                f"host recount; delta/recompute tuples tri="
+                f"{moved['tri'][0]:.0f}/{moved['tri'][1]:.0f} p3="
+                f"{moved['p3'][0]:.0f}/{moved['p3'][1]:.0f}, engine "
+                f"{eng.stats.delta_tuples:.0f}/"
+                f"{eng.stats.recompute_tuples:.0f}; ingest_ms={ms:.1f} engine hits +{eng.stats.hits - hits0} "
+                f"(misses {eng.stats.misses})")
+
+        # A batch whose every submission dies (retries exhausted, and the
+        # recompute fallback's too) raises and changes nothing; the
+        # store's writes never read a partition, so a partition_read
+        # crash can only hit a reopen, which it fails.
+        snap = (store.version, store.aggregates["tri"].value,
+                store.aggregates["p3"].value)
+        with FaultInjector([FaultSpec("submit", "crash", 1.0)],
+                           seed=seed) as inj:
+            try:
+                store.apply_deltas(inserts=(np.array([0]), np.array([1])))
+                check(False, "store: a batch under submit crashes applied")
+            except IngestError:
+                pass
+        fired = inj.counters()
+        with FaultInjector([FaultSpec("partition_read", "crash", 1.0)],
+                           seed=seed) as inj:
+            try:
+                ServingStore(tmp, eng)
+                check(False, "store: a reopen under partition_read "
+                             "crashes succeeded")
+            except InjectedCrash:
+                pass
+        fired.update(inj.counters())
+        reopened = ServingStore(tmp, eng)
+        for s in (store, reopened):
+            check((s.version, s.aggregates["tri"].value,
+                   s.aggregates["p3"].value) == snap,
+                  f"store: a failed batch or reopen changed the store")
+        log(f"store faults ok: version {snap[0]} and both values unchanged "
+            f"in memory and on reopen; fired {fired}")
+    counts = dict(ops.LAUNCHES)
+    check(device.type != "cuda" or counts["probe_counts"] > 0,
+          "store: probe_counts never launched")
+    snapshot = eng.stats.snapshot()
+    clear_compiled_caches()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"store ok: launches={counts} (eager warm-ups) hits="
+        f"{snapshot['cache_hits']:.0f} misses={snapshot['cache_misses']:.0f} "
+        f"delta_tuples={snapshot['delta_tuples']:.0f} recompute_tuples="
+        f"{snapshot['recompute_tuples']:.0f}; caches cleared, "
+        f"{memory_line(device)}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: lineage recovery
+# ---------------------------------------------------------------------------
+
+RECOVERY_RATE = 0.2
+
+
+def run_recovery(w: Workload, seed: int, device: torch.device) -> dict:
+    """Phase 3g at the main path's graph: ``resilient_cascade_query``
+    (the aggregated chain, cascade then a charged Γ) and
+    ``resilient_one_round_query`` (1,3J, ``fused``) bit-identical to the
+    plain executors fault-free and under seeded crashes; a cascade
+    killed in hop 1 resumes from hop 0's snapshot bit-identically; a
+    compiled plan's capture and replay fire nothing.  Returns the
+    launches per kernel (eager runs)."""
+    from repro_torch.core import (ChainQuery, SimGrid, chain_edge_inputs,
+                                  clear_compiled_caches, jit_execute_chain)
+    from repro_torch.core.executor import cascade_query, one_round_query
+    from repro_torch.checkpoint import latest_hop
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import (FaultInjector, FaultSpec, HopFailed,
+                                        resilient_cascade_query,
+                                        resilient_one_round_query)
+
+    grid = SimGrid(GRID)
+    ops.reset_launches()
+    # The cascade's one mid-sized buffer is hop 0's output (J1): sized
+    # for j1, so its snapshot is not a j3-sized buffer of padding.
+    j1 = w.stats.prefix_joins[0]
+    caps_c = dataclasses.replace(w.caps, mid=int(j1 * 6 / math.prod(GRID))
+                                 + 256)
+    agg = ChainQuery.three_way(aggregate=True)
+    rels = chain_edge_inputs(agg, w.edges, GRID, device=device)
+
+    def timed_run(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    plain, plain_ms = timed_run(lambda: cascade_query(grid, agg, rels,
+                                                      caps=caps_c))
+    check(not bool(plain[2]), "recovery cascade: overflow")
+    check_against_a3(w, plain[0], True)
+
+    def cascade(**kw):
+        return resilient_cascade_query(grid, agg, rels, caps=caps_c, **kw)
+    got, ff_ms = timed_run(cascade)
+    check(same_result(got[:3], plain) and got[3].retries == 0,
+          "recovery cascade: fault-free run differs from cascade_query")
+    with FaultInjector([FaultSpec("shuffle", "crash", RECOVERY_RATE)],
+                       seed=seed) as inj:
+        got, f_ms = timed_run(cascade)
+    check(same_result(got[:3], plain), "recovery cascade: faulted run differs")
+    check(sum(inj.fired.values()) > 0, "recovery cascade: nothing fired")
+    rep = got[3].to_json()
+    log(f"recovery cascade ok: bit-identical fault-free and under shuffle "
+        f"crashes (rate {RECOVERY_RATE}, seed {seed}); fired "
+        f"{inj.counters()} retries={rep['retries']} "
+        f"recovery={rep['recovery']} "
+        f"plain_ms={plain_ms:.1f} resilient_ms={ff_ms:.1f} "
+        f"faulted_ms={f_ms:.1f}")
+    del got
+    with tempfile.TemporaryDirectory() as snap:
+        # Hop 0 offers 2 shuffles a grid axis to the injector (left and
+        # right); armed after them, every attempt of hop 1 dies.
+        first = 2 * len(GRID)
+        t0 = time.perf_counter()
+        with FaultInjector([FaultSpec("shuffle", "crash", 1.0,
+                                      skip_first=first)], seed=seed):
+            try:
+                cascade(snapshot_dir=snap)
+                check(False, "recovery killed run: hop 1 survived")
+            except HopFailed as e:
+                check(e.where == "hop_1", f"recovery killed run: {e.where}")
+        check(latest_hop(snap) == 0, "recovery killed run: no hop 0 "
+                                     "snapshot")
+        got = cascade(snapshot_dir=snap)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got[3].resumed_from == 0 and got[3].retries == 0
+              and same_result(got[:3], plain),
+              "recovery killed run: the resumed run differs")
+        size = sum(p.stat().st_size for p in Path(snap).rglob("*")
+                   if p.is_file())
+    log(f"recovery resume ok: killed in hop 1, resumed from hop 0's "
+        f"snapshot ({size} bytes) bit-identically; kill + resume "
+        f"{ms:.1f} ms")
+    del got, plain, rels
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    query = ChainQuery.three_way()
+    rels = chain_edge_inputs(query, w.edges, GRID, device=device)
+    plain, plain_ms = timed_run(lambda: one_round_query(
+        grid, query, rels, caps=w.caps, join_impl="fused"))
+    check(not bool(plain[2]), "recovery one_round: overflow")
+
+    def one_round():
+        return resilient_one_round_query(grid, query, rels, caps=w.caps,
+                                         join_impl="fused")
+    got, ff_ms = timed_run(one_round)
+    check(same_result(got[:3], plain) and got[3].retries == 0,
+          "recovery one_round: fault-free run differs from one_round_query")
+    with FaultInjector([FaultSpec("shuffle", "crash", RECOVERY_RATE),
+                        FaultSpec("reducer", "crash", RECOVERY_RATE)],
+                       seed=seed) as inj:
+        got, f_ms = timed_run(one_round)
+    check(same_result(got[:3], plain),
+          "recovery one_round: faulted run differs")
+    check(inj.fired[("reducer", "crash")] > 0,
+          "recovery one_round: no reducer failed")
+    rep = got[3].to_json()
+    log(f"recovery one_round ok: bit-identical fault-free and under "
+        f"shuffle + reducer crashes (rate {RECOVERY_RATE}, seed {seed}); "
+        f"fired {inj.counters()} failed_reducers={rep['failed_reducers']} "
+        f"retries={rep['retries']} recovery={rep['recovery']} "
+        f"plain_ms={plain_ms:.1f} resilient_ms={ff_ms:.1f} "
+        f"faulted_ms={f_ms:.1f}")
+    del got
+    counts = dict(ops.LAUNCHES)
+
+    # A compiled plan (warm-up, capture, replays) fires nothing and
+    # draws nothing, with every rule at rate 1.
+    run = jit_execute_chain(grid, query, strategy="one_round", caps=w.caps,
+                            donate=False, join_impl="fused")
+    with FaultInjector([FaultSpec("shuffle", "crash", 1.0),
+                        FaultSpec("reducer", "crash", 1.0)],
+                       seed=seed) as inj:
+        for _ in range(2):
+            got = run(rels)
+            check(same_result(got[:3], plain), "recovery: the compiled plan "
+                                           "differs from eager")
+            del got
+    check(not inj.observed and not inj.fired,
+          f"recovery: a compiled plan fired or drew: {dict(inj.observed)}")
+    del plain, rels, run
+    clear_compiled_caches()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"recovery compiled ok: capture + replay under rate-1 rules "
+        f"observed no opportunity; launches={counts} (eager runs); "
+        f"caches cleared, {memory_line(device)}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2054,6 +2559,9 @@ def main(argv=None) -> int:
     compiled, replays = run_compiled_path(w, dev)
     for counts in (compiled, run_serving(w, per_slot, dev),
                    run_mapside_path(w, per_slot, replays, dev),
+                   run_entry_points(w, dev),
+                   run_store(w, per_slot, args.seed, dev),
+                   run_recovery(w, args.seed, dev),
                    run_shares_skew(skew, dev), run_attention_entry(dev)):
         for name, c in counts.items():
             launches[name] += c

@@ -9,9 +9,11 @@ replication lower bounds with per-plan gap metrics — speaks in
 JAX package's; the query engine runs the checker on every cache miss
 when ``QueryServeConfig.verify_plans`` is set.
 
-Not ported yet (ROADMAP A14): the bench-target corpus, the jaxpr audit
-(its checks become tests over the port's operators), the resilience
-verifier and the ``repro-verify`` command line.
+The recovery-metadata pass (:mod:`.resilience_verifier`,
+:func:`verify_recovery_meta`) is a copy too.  Not ported yet (ROADMAP
+A14): the bench-target corpus, the jaxpr audit (its checks become
+tests over the port's operators) and the ``repro-verify`` command
+line.
 """
 
 from .report import (ERROR, WARNING, Finding, VerifierReport,
@@ -22,6 +24,7 @@ from .plan_verifier import (COST_RTOL, GAP_WARN_FACTOR,
                             verify_join_steps, verify_partitioning,
                             verify_query_caps, verify_query_plan,
                             verify_replication_bound)
+from .resilience_verifier import verify_recovery_meta
 
 __all__ = [
     "ERROR", "WARNING", "Finding", "VerifierReport", "reports_to_json",
@@ -29,5 +32,5 @@ __all__ = [
     "verify_grid", "verify_join_steps", "verify_chain_caps",
     "verify_query_caps", "verify_partitioning",
     "verify_replication_bound", "verify_chain_costs",
-    "verify_chain_plan", "verify_query_plan",
+    "verify_chain_plan", "verify_query_plan", "verify_recovery_meta",
 ]

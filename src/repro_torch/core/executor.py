@@ -23,9 +23,10 @@ Port of ``src/repro/core/executor.py`` for this slice:
 
 Cost accounting is the paper's: each round charges read + shuffled
 tuples, as float32 device scalars; the final aggregator of a pushdown
-cascade is uncharged.  ``measure_skew=True`` adds
-``stats["max_bucket_load"]``, the most-loaded reducer of any map-phase
-hop, from the ``hash_histogram`` kernel.  ``overlap_chunks > 1`` is a
+cascade is uncharged unless ``include_final_agg=True``.
+``measure_skew=True`` adds ``stats["max_bucket_load"]``, the
+most-loaded reducer of any map-phase hop, from the ``hash_histogram``
+kernel.  ``overlap_chunks > 1`` is a
 later slice and raises ``NotImplementedError``.
 """
 
@@ -293,6 +294,31 @@ def _final_aggregate(grid: Grid, query: JoinQuery, left: Relation,
         local_capacity=caps.out, local_combine=local_combine)
 
 
+def cascade_hop(grid: Grid, left: Relation, right: Relation, key: str,
+                extras: Sequence[str], *, i: int, last: bool,
+                left_cap: Optional[int], caps: ChainCaps,
+                join_impl: str = "sort_merge",
+                ) -> Tuple[Relation, Stats, torch.Tensor, int]:
+    """Round ``i`` of :func:`cascade_query`: ``left ⋈ right`` on ``key``
+    with the round's salt, receive and local buffers grown to the
+    previous round's output capacity ``left_cap`` (None in the first
+    round), then the cycle-closing filters on ``extras``.  Returns
+    (result, stats, overflow, the result's capacity: ``caps.out`` in the
+    ``last`` round, else ``caps.mid``)."""
+    if extras:
+        right = right.rename({a: _CLOSE + a for a in extras})
+    recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
+    local = caps.local if left_cap is None else max(left_cap, caps.recv)
+    out_cap = caps.out if last else caps.mid
+    out, st, ovf = two_way_join(
+        grid, left, right, key, key, recv_capacity=recv,
+        out_capacity=out_cap, local_capacity=local, salt=i,
+        join_impl=join_impl)
+    if extras:
+        out = _close_cycle(out, extras)
+    return out, st, ovf, out_cap
+
+
 def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                   caps: ChainCaps, join_order: Optional[Sequence[int]] = None,
                   local_combine: bool = False, measure_skew: bool = False,
@@ -320,26 +346,16 @@ def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
         [query.values[order[0]]] if query.values[order[0]] else []
 
     for i, (j, key, extras) in enumerate(steps):
-        right = rels[j]
-        if extras:
-            right = right.rename({a: _CLOSE + a for a in extras})
-        recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
-        local = caps.local if left_cap is None else max(left_cap, caps.recv)
-        out_cap = caps.out if i == n - 2 else caps.mid
         if measure_skew:
             skew = torch.maximum(skew, _hop_load(grid, left, key, k_flat,
                                                  salt=i))
-            skew = torch.maximum(skew, _hop_load(grid, right, key, k_flat,
+            skew = torch.maximum(skew, _hop_load(grid, rels[j], key, k_flat,
                                                  salt=i))
-        left, st, ovf = two_way_join(
-            grid, left, right, key, key, recv_capacity=recv,
-            out_capacity=out_cap, local_capacity=local, salt=i,
-            join_impl=join_impl)
-        if extras:
-            left = _close_cycle(left, extras)
+        left, st, ovf, left_cap = cascade_hop(
+            grid, left, rels[j], key, extras, i=i, last=i == n - 2,
+            left_cap=left_cap, caps=caps, join_impl=join_impl)
         all_stats.append(st)
         overflow = overflow | ovf
-        left_cap = out_cap
         if query.values[j]:
             value_cols.append(query.values[j])
 
@@ -358,14 +374,16 @@ def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
 def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                   caps: ChainCaps, pushdown: bool = True,
                   local_combine: bool = False, measure_skew: bool = False,
+                  include_final_agg: bool = False,
                   join_impl: str = "sort_merge",
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
     """N−1 rounds of two-way joins, left-deep in query order.
 
     With an aggregation and ``pushdown=True``, every non-final round is
     followed by Γ_{A_1, A_{j+2}; SUM} of the running value product — the
-    paper's 2,3JA generalized; the final aggregator is uncharged.
-    Without pushdown the aggregation runs once at the end and is charged.
+    paper's 2,3JA generalized; the final aggregator is uncharged unless
+    ``include_final_agg=True``.  Without pushdown the aggregation runs
+    once at the end and is charged.
     """
     n = query.n_relations
     query.check_relations(rels)
@@ -418,11 +436,12 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
 
     if agg is not None:
         # Final Γ_{A_1, A_{N+1}; SUM}: the paper's uncharged final
-        # aggregator under pushdown, the charged round without it.
+        # aggregator under pushdown (formula 6r+2r'+2r''), the charged
+        # round without it or with ``include_final_agg``.
         left, st_f, ovf_f = _final_aggregate(grid, query, left, value_cols,
                                              caps, local_combine)
         overflow = overflow | ovf_f
-        if not pushdown:
+        if include_final_agg or not pushdown:
             all_stats.append(st_f)
     stats = merge_stats(*all_stats)
     if measure_skew:
@@ -736,6 +755,7 @@ def mapside_cascade_chain(grid: Grid, query: ChainQuery, rels, *,
 def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                   strategy: str, caps: ChainCaps,
                   measure_skew: bool = False, local_combine: bool = False,
+                  include_final_agg: bool = False,
                   join_impl: str = "sort_merge",
                   overlap_chunks: int = 1,
                   partitioning=None, hop_modes=None,
@@ -760,7 +780,8 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     ``"sort_merge"`` (default), ``"fused"`` (rank-packed sorts and the
     ``probe_counts`` kernel) or the ``"all_pairs"`` oracle — identical
     tuple sets, stats and overflow flags.  ``measure_skew=True`` adds
-    ``stats["max_bucket_load"]``.  Returns ``(result, stats,
+    ``stats["max_bucket_load"]``; ``include_final_agg=True`` charges the
+    pushdown cascade's final Γ.  Returns ``(result, stats,
     overflow)``; everything stays on the inputs' device.  On a laned
     :class:`SimGrid` the stats and the flag are ``(lanes,)``.
 
@@ -798,7 +819,9 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
             raise ValueError("cascade_pushdown needs an aggregated query")
         return cascade_chain(grid, query, rels, caps=caps, pushdown=True,
                              local_combine=local_combine,
-                             measure_skew=measure_skew, join_impl=join_impl)
+                             measure_skew=measure_skew,
+                             include_final_agg=include_final_agg,
+                             join_impl=join_impl)
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
@@ -806,6 +829,7 @@ def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                   strategy: str, caps: ChainCaps,
                   join_order: Optional[Sequence[int]] = None,
                   measure_skew: bool = False, local_combine: bool = False,
+                  include_final_agg: bool = False,
                   join_impl: str = "sort_merge",
                   overlap_chunks: int = 1,
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
@@ -833,7 +857,9 @@ def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                              "for endpoint aggregates on a chain)")
         return cascade_chain(grid, query, rels, caps=caps, pushdown=True,
                              local_combine=local_combine,
-                             measure_skew=measure_skew, join_impl=join_impl)
+                             measure_skew=measure_skew,
+                             include_final_agg=include_final_agg,
+                             join_impl=join_impl)
     if strategy == "shares_skew":
         raise ValueError(
             "shares_skew runs per-combination grids and is chain-only; call "
@@ -854,6 +880,20 @@ _LIVE: "weakref.WeakSet[CompiledPlan]" = weakref.WeakSet()
 
 #: One graph memory pool per CUDA device, shared by every captured plan.
 _POOLS: Dict[torch.device, tuple] = {}
+
+#: Calls of a :class:`CompiledPlan` in progress.  A compiled JAX program
+#: never fires a fault (the injector sees tracers); the port runs a
+#: compiled plan eagerly on its first call (warm-up, then capture) and,
+#: on the CPU, on every call, so a fault injector asks
+#: :func:`in_compiled_plan` instead and neither fires nor draws from its
+#: RNG while it holds.
+_compiled_calls = 0
+
+
+def in_compiled_plan() -> bool:
+    """True while a :class:`CompiledPlan` call runs (capture, replay,
+    or the eager call on the CPU)."""
+    return _compiled_calls > 0
 
 
 def _relation(rel) -> Relation:
@@ -969,16 +1009,21 @@ class CompiledPlan:
         _check_options(self.opts.get("overlap_chunks", 1))
 
     def __call__(self, rels: Sequence):
+        global _compiled_calls
         rels = list(rels)
         self.check_ported()
-        if not _relation(rels[0]).valid.is_cuda:
-            return self._execute(rels)
-        sig = input_signature(rels)
-        graph = self._graphs.get(sig)
-        if graph is None:
-            graph = _Graph(self._execute, rels)
-            self._graphs[sig] = graph
-        return graph.replay(rels)
+        _compiled_calls += 1
+        try:
+            if not _relation(rels[0]).valid.is_cuda:
+                return self._execute(rels)
+            sig = input_signature(rels)
+            graph = self._graphs.get(sig)
+            if graph is None:
+                graph = _Graph(self._execute, rels)
+                self._graphs[sig] = graph
+            return graph.replay(rels)
+        finally:
+            _compiled_calls -= 1
 
     def with_lanes(self, lanes: int) -> "CompiledPlan":
         """The same plan over ``SimGrid(grid.shape, lanes=lanes)``: one
@@ -1042,8 +1087,9 @@ def jit_execute_chain(grid: Grid, query: ChainQuery, *, strategy: str,
     ``donate`` is accepted and keyed as in the JAX package; the port
     copies the inputs into its own buffers and never reads the caller's
     tensors after the call, so donating or not changes nothing else.
-    Options (``measure_skew``, ``local_combine``, ``join_impl``,
-    ``overlap_chunks``) forward to :func:`execute_chain`; options of
+    Options (``measure_skew``, ``local_combine``, ``include_final_agg``,
+    ``join_impl``, ``overlap_chunks``) forward to :func:`execute_chain`
+    and are part of the cache key; options of
     later slices raise from the call, not from the cache lookup.
     """
     return _compiled(grid, query, strategy, caps, donate, opts, chain=True)
@@ -1057,7 +1103,8 @@ def jit_execute_query(grid: Grid, query: JoinQuery, *, strategy: str,
     caching, donation, and reuse semantics).  Options (``join_order``,
     ``measure_skew``, ``local_combine``, ``join_impl``) forward to
     :func:`execute_query`; a ``join_order`` list must be passed as a
-    tuple (the cache key hashes it)."""
+    tuple (the cache key hashes it).  ``include_final_agg`` forwards
+    too."""
     return _compiled(grid, query, strategy, caps, donate, opts, chain=False)
 
 

@@ -262,8 +262,8 @@ def skew_crossover_scale(stats: ChainStats, k: int, *,
 
 def chain_stats_exact(edges, sketch_top_k: Optional[int] = None) -> ChainStats:
     """Exact ChainStats for a chain of edge-list relations, via sparse
-    path-count products on the host (cheap at experiment scales, same
-    trick as ``self_join_stats_exact``).
+    path-count products on the host (same trick as
+    ``self_join_stats_exact``).
 
     ``edges`` is a sequence of (src, dst) int arrays, one per relation
     in chain order.  ``prefix_joins[i]`` = Σ of the path-count matrix
@@ -272,36 +272,44 @@ def chain_stats_exact(edges, sketch_top_k: Optional[int] = None) -> ChainStats:
     With ``sketch_top_k`` set, the returned stats also carry the top-k
     key-frequency sketch (``key_freqs``) that lets :func:`plan_chain`
     price skew and consider the SharesSkew plan.
+
+    The JAX package multiplies dicts of dicts; this copy multiplies
+    numpy COO matrices (node ids ranked densely, entries keyed
+    ``row·n + col``) and gives the same numbers.
     """
-    from collections import defaultdict
+    srcs = [np.asarray(s).astype(np.int64).reshape(-1) for s, _ in edges]
+    dsts = [np.asarray(d).astype(np.int64).reshape(-1) for _, d in edges]
+    sizes = tuple(float(len(s)) for s in srcs)
+    nodes = np.unique(np.concatenate(srcs + dsts))
+    n = max(len(nodes), 1)
 
-    def adj(src, dst):
-        out = defaultdict(lambda: defaultdict(int))
-        for s_, d_ in zip(np.asarray(src).tolist(), np.asarray(dst).tolist()):
-            out[s_][d_] += 1
-        return out
+    def coo(src, dst):
+        """(unique row·n + col keys, their multiplicities)."""
+        keys = np.searchsorted(nodes, src) * n + np.searchsorted(nodes, dst)
+        return np.unique(keys, return_counts=True)
 
-    mats = [adj(s, d) for s, d in edges]
-    sizes = tuple(float(len(np.asarray(s))) for s, _ in edges)
-    cur = mats[0]
+    mats = [coo(s, d) for s, d in zip(srcs, dsts)]
+    cur_keys, cur_vals = mats[0]
     prefix_joins, prefix_nnz, pushdown_joins = [], [], []
-    for step, nxt in enumerate(mats[1:]):
+    for step, (nxt_keys, nxt_vals) in enumerate(mats[1:]):
+        nxt_rows = nxt_keys // n
         if step >= 1:
             # Pushdown round output: each nnz entry of Γ(prefix) pairs
             # with every matching next-relation tuple.
-            deg = {y: float(sum(row.values())) for y, row in nxt.items()}
-            h = sum(deg.get(y, 0.0) for row in cur.values() for y in row)
-            pushdown_joins.append(h)
-        prod = defaultdict(lambda: defaultdict(int))
-        join_size = 0.0
-        for x, row in cur.items():
-            for y, m in row.items():
-                for z, m2 in nxt.get(y, {}).items():
-                    prod[x][z] += m * m2
-                    join_size += m * m2
-        cur = prod
-        prefix_joins.append(join_size)
-        prefix_nnz.append(float(sum(len(r) for r in prod.values())))
+            deg = np.bincount(nxt_rows, weights=nxt_vals, minlength=n)
+            pushdown_joins.append(float(deg[cur_keys % n].sum()))
+        r_order, lo, cnt = _matches(cur_keys % n, nxt_rows)
+        total = int(cnt.sum())
+        li = np.repeat(np.arange(len(cur_keys)), cnt)
+        ri = r_order[np.repeat(lo, cnt) + np.arange(total)
+                     - np.repeat(np.cumsum(cnt) - cnt, cnt)]
+        paths = cur_vals[li] * nxt_vals[ri]
+        keys = (cur_keys[li] // n) * n + nxt_keys[ri] % n
+        cur_keys, inverse = np.unique(keys, return_inverse=True)
+        cur_vals = np.bincount(inverse.reshape(-1), weights=paths,
+                               minlength=len(cur_keys)).astype(np.int64)
+        prefix_joins.append(float(paths.sum()))
+        prefix_nnz.append(float(len(cur_keys)))
     key_freqs = None
     if sketch_top_k is not None:
         from .skew import chain_key_sketch
@@ -424,9 +432,8 @@ def _connected_orders(query, max_relations: int = 6):
 def query_stats_exact(query, tables, *, sketch_top_k: Optional[int] = None,
                       ) -> QueryStats:
     """Exact QueryStats for a general join query, by simulating every
-    connected left-deep order with host-side hash joins (cheap at
-    experiment scales — the general counterpart of
-    :func:`chain_stats_exact`).
+    connected left-deep order with host-side joins (the general
+    counterpart of :func:`chain_stats_exact`).
 
     ``tables`` is one entry per relation: a tuple of equal-length int
     column arrays matching the relation's attribute tuple (a value
@@ -438,40 +445,44 @@ def query_stats_exact(query, tables, *, sketch_top_k: Optional[int] = None,
     get the :class:`ChainStats` view (prefix joins, aggregated
     intermediates, optional ``sketch_top_k`` skew sketch) so
     :func:`plan_query` can delegate to the chain planner.
+
+    The JAX package joins Python tuples; this copy joins numpy columns
+    (sorted keys and ``searchsorted``) and gives the same numbers.  A
+    hop's result is only built where a later hop or the aggregate reads
+    it, so a graph's 3-paths are counted, not listed.
     """
     n = query.n_relations
     if len(tables) != n:
         raise ValueError(f"query has {n} relations, got {len(tables)} tables")
-    rows = []
-    for j, cols in enumerate(tables):
+    cols = []
+    for j, table in enumerate(tables):
         arity = len(query.relations[j])
-        cols = [np.asarray(c) for c in cols[:arity]]
-        if len(cols) != arity or any(len(c) != len(cols[0]) for c in cols):
+        key_cols = [np.asarray(c) for c in table[:arity]]
+        if len(key_cols) != arity or any(len(c) != len(key_cols[0])
+                                         for c in key_cols):
             raise ValueError(f"relation {j} needs {arity} equal-length key "
                              f"columns")
-        rows.append(list(zip(*(c.tolist() for c in cols))))
-    sizes = tuple(float(len(r)) for r in rows)
+        cols.append({a: c.astype(np.int64) for a, c
+                     in zip(query.relations[j], key_cols)})
+    sizes = tuple(float(len(next(iter(c.values())))) for c in cols)
 
+    agg_keys = tuple(query.aggregate.keys) if query.aggregate else ()
     orders, intermediates, hop_joins = [], [], []
-    final_rows, final_pos = None, None
+    agg_groups = None
     for order in _connected_orders(query):
-        acc, attr_pos, inter, raw = _run_order(query, rows, order)
+        acc, inter, raw = _run_order(query, cols, order,
+                                     keep=agg_keys if not orders else ())
+        if query.aggregate is not None and not orders:
+            keys = np.stack([acc[a] for a in agg_keys], 1)
+            agg_groups = float(len(np.unique(keys, axis=0)))
         orders.append(tuple(order))
         intermediates.append(tuple(inter))
         hop_joins.append(tuple(raw))
-        if final_rows is None:
-            final_rows, final_pos = acc, attr_pos
-
-    agg_groups = None
-    if query.aggregate is not None:
-        kidx = [final_pos[a] for a in query.aggregate.keys]
-        agg_groups = float(len({tuple(t[i] for i in kidx)
-                                for t in final_rows}))
 
     chain = None
     if query.chain_attr_order() is not None:
-        edge_lists = [(np.asarray(cols[0]), np.asarray(cols[1]))
-                      for cols in tables]
+        edge_lists = [(np.asarray(table[0]), np.asarray(table[1]))
+                      for table in tables]
         chain = chain_stats_exact(edge_lists, sketch_top_k=sketch_top_k)
     return QueryStats(sizes=sizes, orders=tuple(orders),
                       intermediates=tuple(intermediates),
@@ -479,40 +490,65 @@ def query_stats_exact(query, tables, *, sketch_top_k: Optional[int] = None,
                       chain=chain)
 
 
-def _run_order(query, rows, order):
-    """Multiplicity-preserving host hash joins along one left-deep
-    order: joins on the first shared attribute, applies the remaining
-    shared attributes (cycle-closing predicates) as per-hop filters.
-    Returns (result rows, attr→position, post-filter intermediate sizes,
-    raw pre-filter join sizes)."""
-    from collections import defaultdict
-    acc = list(rows[order[0]])
-    attr_pos = {a: i for i, a in enumerate(query.relations[order[0]])}
+def _key_ids(left, right):
+    """Equal ids for equal key tuples on the two sides: the one key
+    column itself, or the mixed-radix number of each column's dense
+    rank."""
+    if len(left) == 1:
+        return left[0], right[0]
+    ids = np.zeros(len(left[0]) + len(right[0]), np.int64)
+    for lc, rc in zip(left, right):
+        uniq, rank = np.unique(np.concatenate([lc, rc]), return_inverse=True)
+        ids = ids * len(uniq) + rank.reshape(-1)
+        # every rank < len(uniq) <= rows, so no product of ranks
+        # overflows before rows**columns does
+    return ids[:len(left[0])], ids[len(left[0]):]
+
+
+def _matches(lid, rid):
+    """Per left row, the run of right rows with an equal id: (right
+    rows sorted by id, run start, run length)."""
+    r_order = np.argsort(rid, kind="stable")
+    uniq, start, count = np.unique(rid[r_order], return_index=True,
+                                   return_counts=True)
+    if not len(uniq):
+        zero = np.zeros(len(lid), np.int64)
+        return r_order, zero, zero
+    pos = np.minimum(np.searchsorted(uniq, lid), len(uniq) - 1)
+    hit = uniq[pos] == lid
+    return (r_order, np.where(hit, start[pos], 0),
+            np.where(hit, count[pos], 0))
+
+
+def _run_order(query, cols, order, keep=()):
+    """Multiplicity-preserving host joins along one left-deep order:
+    joins on the first shared attribute, applies the remaining shared
+    attributes (cycle-closing predicates) as per-hop filters.  Returns
+    (the final result's ``keep`` columns, post-filter intermediate
+    sizes, raw pre-filter join sizes); the columns of a hop are built
+    only where a later hop reads them."""
+    acc = dict(cols[order[0]])
     inter, raw = [], []
-    for j in order[1:]:
-        rel_attrs = query.relations[j]
-        shared = [a for a in rel_attrs if a in attr_pos]
-        key, extras = shared[0], shared[1:]
-        kpos = rel_attrs.index(key)
-        by_key = defaultdict(list)
-        for t in rows[j]:
-            by_key[t[kpos]].append(t)
-        new_cols = [a for a in rel_attrs if a not in attr_pos]
-        new_pos = [rel_attrs.index(a) for a in new_cols]
-        extra_pairs = [(attr_pos[a], rel_attrs.index(a)) for a in extras]
-        raw_count = 0
-        out = []
-        for t in acc:
-            for u in by_key.get(t[attr_pos[key]], ()):
-                raw_count += 1
-                if all(t[i] == u[p] for i, p in extra_pairs):
-                    out.append(t + tuple(u[p] for p in new_pos))
-        for a in new_cols:
-            attr_pos[a] = len(attr_pos)
-        acc = out
-        raw.append(float(raw_count))
-        inter.append(float(len(acc)))
-    return acc, attr_pos, inter, raw
+    for h, j in enumerate(order[1:]):
+        last = h == len(order) - 2
+        right = cols[j]
+        shared = [a for a in query.relations[j] if a in acc]
+        raw.append(float(_matches(acc[shared[0]], right[shared[0]])[2].sum()))
+        lid, rid = _key_ids([acc[a] for a in shared],
+                            [right[a] for a in shared])
+        r_order, lo, cnt = _matches(lid, rid)
+        total = int(cnt.sum())
+        inter.append(float(total))
+        if last and not keep:
+            return {}, inter, raw
+        li = np.repeat(np.arange(len(lid)), cnt)
+        ri = r_order[np.repeat(lo, cnt) + np.arange(total)
+                     - np.repeat(np.cumsum(cnt) - cnt, cnt)]
+        new = {a: right[a][ri] for a in query.relations[j] if a not in acc}
+        names = keep if last else acc
+        acc = {a: acc[a][li] for a in names if a in acc}
+        acc.update({a: c for a, c in new.items() if not last or a in keep})
+    return acc, inter, raw
 
 
 # ---------------------------------------------------------------------------

@@ -97,9 +97,11 @@ class SimGrid(Grid):
 # Fault-injection hook
 # ---------------------------------------------------------------------------
 
-#: The JAX package offers every shuffle hop's payload to an installed
-#: fault injector; the port keeps the hook's shape, and no injector
-#: exists here yet, so it stays ``None``.
+#: When a fault injector (:mod:`repro_torch.resilience.faults`) is
+#: installed, every shuffle and broadcast hop offers it the payload the
+#: reducers are about to receive, once a hop, as the JAX package does:
+#: the hook may delay, raise, or report corruption.  ``None`` (the
+#: default) costs one attribute read a hop.
 _fault_hook = None
 
 

@@ -4,22 +4,28 @@ execution over the join engine.
   QueryEngine / QueryServeConfig   — cached, batching front end over
                                      plan_query + jit_execute_query
   QueryRequest / ServeResult       — the request/response surface
-  ServingStats                     — hits, latency percentiles, qps
+  ServingStats                     — hits, latency percentiles, qps,
+                                     delta-vs-recompute savings
+  ServingStore / StandingAggregate — durable edges + delta-maintained
+                                     triangle / path counts (streaming
+                                     ingest over the partitioned store)
 
 Chain requests with a current partitioning certificate run map-side
 over prebuilt ``PartitionedRelation`` inputs (``submit(rels=...)``).
-Not ported yet: ``ServingStore`` (streaming ingest over the partitioned
-store, ROADMAP A13) and the LM ``Engine`` / ``ServeConfig`` (A15).
+Not ported yet: the LM ``Engine`` / ``ServeConfig`` (ROADMAP A15).
 """
 
 from .engine import (CachedPlan, CircuitOpen, DeadlineExceeded, PlanRejected,
                      QueryEngine, QueryRequest, QueryServeConfig,
                      RequestShed, ServeResult, ServingStats, set_fault_hook,
                      stats_signature, weighted_total)
+from .store import (IngestError, ServingStore, StandingAggregate,
+                    delta_terms)
 
 __all__ = [
     "QueryEngine", "QueryServeConfig", "QueryRequest", "ServeResult",
     "ServingStats", "CachedPlan", "PlanRejected", "RequestShed",
     "DeadlineExceeded", "CircuitOpen", "set_fault_hook", "stats_signature",
     "weighted_total",
+    "ServingStore", "StandingAggregate", "IngestError", "delta_terms",
 ]

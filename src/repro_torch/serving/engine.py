@@ -27,8 +27,9 @@ chain request with a current partitioning certificate runs the map-side
 cascade over prebuilt
 :class:`~repro_torch.core.partition.PartitionedRelation` inputs; one
 whose certificate is stale degrades to the shuffle cascade, its
-prebuilt partitions flattened back.  Not ported yet: ``ServingStore``
-(ROADMAP A13) and the LM ``Engine`` (A15).
+prebuilt partitions flattened back.  Streaming ingest
+(:class:`~repro_torch.serving.store.ServingStore`) runs its delta terms
+through this engine.  Not ported yet: the LM ``Engine`` (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -102,12 +103,15 @@ def weighted_total(query: JoinQuery, out: Relation) -> float:
     With unit weights this is the plain result count; with signed ±1
     delta weights it is the multilinear term the incremental
     maintenance cascade sums — deletions flow through the join as −1
-    factors, no special-casing."""
+    factors, no special-casing.  Each row's product is float32, as in
+    the JAX package; the sum runs in float64, so a count stays exact
+    past 2^24 rows (a graph's 3-paths at R-MAT scale 14)."""
     w = torch.ones_like(out.valid, dtype=torch.float32)
     for v in query.values:
         if v is not None:
             w = w * out.cols[v]
-    return float(torch.where(out.valid, w, torch.zeros_like(w)).sum())
+    return float(torch.where(out.valid, w, torch.zeros_like(w)).sum(
+        dtype=torch.float64))
 
 
 class PlanRejected(RuntimeError):
@@ -204,8 +208,10 @@ class QueryServeConfig:
 class ServingStats:
     """Counters and latency surface of one :class:`QueryEngine`.
 
-    ``delta_tuples`` / ``recompute_tuples`` belong to the streaming
-    ingest store (not ported yet) and stay 0 here."""
+    ``delta_tuples`` / ``recompute_tuples`` are the streaming ingest
+    store's (:class:`~repro_torch.serving.store.ServingStore`): tuples
+    its delta cascades moved against those the avoided recomputes would
+    have moved."""
 
     hits: int = 0
     misses: int = 0
