@@ -8,9 +8,9 @@
   in ``tests/data/bench_counts_seed.json``: tuple accounting does not
   depend on the framework, so the port must reproduce the JAX
   package's counts exactly.
-* :func:`device_record` and :func:`timed` write the device (with the
-  card's name and power limit) and wall times, which exist only on a
-  GPU: on the CPU a time is ``None``.
+* :func:`device_record`, :func:`timed` and :func:`timeit_us` write the
+  device (with the card's name and power limit) and wall times, which
+  exist only on a GPU: on the CPU a time is ``None``.
 """
 
 from __future__ import annotations
@@ -102,3 +102,32 @@ def report_pins(report: dict, bench: str, complete: bool) -> bool:
     print(f"pins {bench}: {n} compared, {len(bad)} differ: "
           f"{'MATCH' if ok else 'MISMATCH'}")
     return ok
+
+
+def timeit_us(fn: Callable[..., Any], *args, device: torch.device,
+              repeats: int = 5) -> Optional[Dict[str, float]]:
+    """Wall time per call in μs, ``{"median_us", "min_us"}`` over
+    ``repeats`` timed calls after one warm-up, the device synchronized
+    around each (the JAX package's ``_timeit``).  Off the GPU the call
+    runs once and the time is ``None``."""
+    import numpy as np
+    if device.type != "cuda":
+        fn(*args)
+        return None
+    fn(*args)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    return {"median_us": float(np.median(times) * 1e6),
+            "min_us": float(np.min(times) * 1e6)}
+
+
+def ratio(num: Optional[dict], den: Optional[dict]) -> Optional[float]:
+    """``num`` median over ``den`` median, or ``None`` without times."""
+    if num is None or den is None:
+        return None
+    return num["median_us"] / den["median_us"]

@@ -76,6 +76,18 @@ Phases, each failing the run on any error:
    caps first (the bytes a slot of its strategy took in phase 3), and
    its scale is cut, with a line saying so, while they do not fit
    beside the graph pool.
+3d–3g. The map-side cascade over the partitioned store, the paper's
+   entry points, streaming ingest and lineage recovery (see each
+   ``run_*`` function).
+3h. The overlapped shuffle schedule: 1,3J, 2,3J, 2,3JA and 1,3JA with
+   ``overlap_chunks=2`` and both joins (2,3J ``sort_merge`` again at 4
+   chunks where its reckoned bytes fit), each eager and through
+   ``jit_execute_chain``, one plan captured at a time: no overflow,
+   stats bit-equal to phase 3's unchunked run, results equal to A³
+   (the enumerations' tuple multiset to phase 3's), every replay equal
+   to eager array for array; eager ms, replay ms beside 3b's unchunked
+   replay, peak and pool bytes.  Then ``op_audit.audit_lowerings`` on
+   the card, every report clean.
 4. The skew path at full size: ``zipf_edges(131072, 8192, 1.0)`` as all
    three relations at k = 256, ``detect_chain_skew`` then
    ``shares_skew_chain`` (``measure_skew=True``) for enumeration
@@ -421,6 +433,11 @@ def run_main_path(w: Workload, device: torch.device) -> tuple[dict, dict]:
                 check(torch.equal(c.cpu(), twin.cols[n]), f"{name}: {n}")
         elif name in FUSED_TWINS and not measure:
             staged[name] = out.map(lambda t: t.cpu())
+        if impl == "sort_merge" and not measure:
+            UNCHUNKED[name] = {
+                "stats": {k: v.cpu() for k, v in stats.items()},
+                "rows": None if aggregate else packed_rows(w, out).cpu(),
+                "peak": peak}
         del out
         if on_gpu:
             torch.cuda.empty_cache()
@@ -462,35 +479,80 @@ def memory_line(device: torch.device) -> str:
             f"max_reserved_bytes={torch.cuda.max_memory_reserved()}")
 
 
-# Traces taken again because the profiler kept no record of any port
-# kernel (printed at the end of the run).
+# Traces taken again because the profiler's counts fell short of the
+# eager run's: each attempt's counts (printed at the end of the run).
 TRACE_RETRIES = []
+# (what, kernel records, the graph's kernel nodes) of each traced
+# replay of a plan's graph (printed at the end of the run).
+TRACED_GRAPHS = []
+
+
+def graph_kernel_nodes(plan) -> int:
+    """The kernel nodes of the one CUDA graph a ``CompiledPlan`` holds,
+    read from the graph itself (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``), not from a trace."""
+    import ctypes
+    graphs = [g.graph for g in plan._graphs.values()]
+    check(len(graphs) == 1, f"a plan holds {len(graphs)} graphs, not 1")
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graphs[0].raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
 
 
 def traced_launches(fn, device: torch.device, expect: dict, accept,
-                    what: str):
+                    what: str, plan=None):
     """``(fn(), launches per kernel)`` from the device trace
     (``ops.traced_launches``); on the CPU (a rehearsal) no kernel runs,
     and every count is 0.  Every attempt's result must pass ``accept``.
-    One symptom is traced again, twice at most: a trace that holds no
-    record of any port kernel where ``expect`` has some (on the card the
-    profiler once dropped every kernel record of one graph replay whose
-    outputs were right).  Each retry is logged and kept in
-    ``TRACE_RETRIES``; counts that differ otherwise are returned as
-    they are, for the caller to hold to ``expect``."""
+    One symptom is traced again, twice at most: a trace whose counts
+    fall short of ``expect`` for some kernel (on the card the profiler
+    has dropped every kernel record of one graph replay, and once one
+    ``probe_counts`` record of two, of replays whose outputs were
+    right).  Where ``fn`` is one replay of ``plan``'s graph, a short
+    trace is held to the graph's own kernel nodes first: a trace that
+    holds a record of every one of them dropped nothing, so its
+    shortfall is a launch the graph lacks, and fails at once.  Else a
+    launch that is really missing is missing from every attempt, so the
+    last attempt's counts go to the caller, to be held to ``expect``.
+    Each short attempt's counts are logged, and those of each attempt
+    traced again are kept in ``TRACE_RETRIES``."""
     from repro_torch.kernels import ops
     if device.type != "cuda":
         result = fn()
         check(accept(result), f"{what}: result differs")
         return result, {name: 0 for name in ops.LAUNCHES}
+    nodes = None if plan is None else graph_kernel_nodes(plan)
     for attempt in range(3):
-        result, counts = ops.traced_launches(fn)
+        result, counts, n_records = ops.traced_launches(fn)
         check(accept(result), f"{what}: traced result differs")
-        if any(counts.values()) or not any(expect.values()) or attempt == 2:
+        if plan is not None:
+            TRACED_GRAPHS.append((what, n_records, nodes))
+        short = any(counts[k] < v for k, v in expect.items())
+        if not short:
             return result, counts
-        TRACE_RETRIES.append(what)
-        log(f"trace: {what}: no kernel record in the trace, expected "
-            f"{expect}: tracing again")
+        log(f"trace: {what}: attempt {attempt} traced {counts}, fewer "
+            f"than {expect}; {n_records} kernel records, the graph's "
+            f"kernel nodes {nodes}")
+        check(nodes is None or n_records < nodes,
+              f"{what}: the trace holds a record of each of the graph's "
+              f"{nodes} kernel nodes, yet counts {counts} < {expect}")
+        if attempt == 2:
+            return result, counts
+        TRACE_RETRIES.append(f"{what} (attempt {attempt}: {counts}, "
+                             f"{n_records} kernel records, graph kernel "
+                             f"nodes {nodes})")
         del result
 
 
@@ -576,7 +638,7 @@ def run_compiled_path(w: Workload, device: torch.device
         got, traced = traced_launches(
             lambda: run(rels), device, per_run,
             lambda got: same_result(got, eager),
-            f"compiled {name} {label} replay")
+            f"compiled {name} {label} replay", plan=run)
         check(traced == per_run, f"compiled {name} {label}: replay "
                                  f"launched {traced} != eager {per_run}")
         del got
@@ -1158,7 +1220,8 @@ def run_mapside_path(w: Workload, per_slot: dict, replays_3b: dict,
             del got
         got, traced = traced_launches(
             lambda: compiled(rels), device, counts,
-            lambda got: same_result(got, eager), f"mapside {label} replay")
+            lambda got: same_result(got, eager), f"mapside {label} replay",
+            plan=compiled)
         check(traced == counts or not on_gpu,
               f"mapside {label}: replay launched {traced} != eager {counts}")
         del got
@@ -1811,6 +1874,181 @@ def run_recovery(w: Workload, seed: int, device: torch.device) -> dict:
         f"observed no opportunity; launches={counts} (eager runs); "
         f"caches cleared, {memory_line(device)}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 3h: the overlapped shuffle schedule
+# ---------------------------------------------------------------------------
+
+# (paper name, aggregated query, strategy) of the overlapped runs, each
+# run with both joins at OVERLAP_CHUNKS; the 2,3J sort_merge run again
+# at OVERLAP_MORE chunks where its reckoned bytes fit.
+OVERLAP_RUNS = (("1,3J", False, "one_round"), ("2,3J", False, "cascade"),
+                ("2,3JA", True, "cascade_pushdown"),
+                ("1,3JA", True, "one_round"))
+OVERLAP_CHUNKS = 2
+OVERLAP_MORE = 4
+# Phase 3's unchunked runs (sort_merge, without measure_skew; the fused
+# twins are bit-identical to them): stats, and the enumerations' sorted
+# packed (a, b, c, d) rows, kept on the host for phase 3h.
+UNCHUNKED: dict = {}
+
+
+def packed_rows(w: Workload, out) -> torch.Tensor:
+    """The valid (a, b, c, d) rows of an enumeration, each packed into
+    one int64 (node ids < 2^15), sorted: its tuple multiset."""
+    bits = max(1, (w.n_nodes - 1).bit_length())
+    key = torch.zeros_like(out.cols["a"][out.valid], dtype=torch.int64)
+    for name in ("a", "b", "c", "d"):
+        key = (key << bits) | out.cols[name][out.valid].to(torch.int64)
+    return torch.sort(key).values
+
+
+def run_overlap_path(w: Workload, replays_3b: dict, device: torch.device
+                     ) -> dict:
+    """Phase 3h: 1,3J, 2,3J, 2,3JA and 1,3JA with ``overlap_chunks=2``
+    (both joins), eager and through ``jit_execute_chain``, one plan
+    captured at a time.  Each run: no overflow, stats bit-equal to
+    phase 3's unchunked run, the result equal to A³ (the enumerations'
+    tuple multiset to phase 3's), every replay equal to eager; then
+    ``op_audit.audit_lowerings`` on the device, every report clean.
+    Returns the launches per kernel (eager runs and traced replays)."""
+    from repro_torch.analysis import op_audit
+    from repro_torch.core import (ChainQuery, SimGrid, chain_edge_inputs,
+                                  clear_compiled_caches, execute_chain,
+                                  jit_execute_chain)
+    from repro_torch.kernels import ops
+
+    on_gpu = device.type == "cuda"
+    launches = {name: 0 for name in ops.LAUNCHES}
+    clear_compiled_caches()
+    if on_gpu:
+        torch.cuda.empty_cache()
+    runs = [(name, agg, strategy, impl, OVERLAP_CHUNKS)
+            for name, agg, strategy in OVERLAP_RUNS
+            for impl in ("sort_merge", "fused")]
+    runs.insert(3, ("2,3J", False, "cascade", "sort_merge", OVERLAP_MORE))
+    peaks: dict = {}
+    for name, aggregate, strategy, impl, chunks in runs:
+        label = f"{name} {impl} C={chunks}"
+        query = ChainQuery.three_way(aggregate=aggregate)
+        if chunks == OVERLAP_MORE and on_gpu:
+            # Each chunk past the first adds one full out_capacity part
+            # and its share of the concat and the compaction: the step
+            # from phase 3's unchunked peak to the C=2 peak, once per
+            # further chunk.  The eager run's cache and the capture's
+            # warm-up (on another stream, and fragmenting: 2,3J's at 4
+            # chunks ran out of memory on an H100 80GB with 14.4 GiB
+            # reserved but unallocated) are each that large.
+            step = peaks[(name, impl)] - UNCHUNKED[name]["peak"]
+            need = 2 * (peaks[(name, impl)]
+                        + (OVERLAP_MORE - OVERLAP_CHUNKS) * step)
+            free = torch.cuda.mem_get_info(device)[0]
+            if need > free:
+                log(f"overlap {label}: not run: reckoned {need} bytes "
+                    f"(eager run and warm-up, each the C={OVERLAP_CHUNKS} "
+                    f"peak plus {OVERLAP_MORE - OVERLAP_CHUNKS} steps of "
+                    f"{step}) against {free} free")
+                continue
+        rels = chain_edge_inputs(query, w.edges, GRID, device=device)
+        kw = dict(strategy=strategy, caps=w.caps, join_impl=impl,
+                  overlap_chunks=chunks)
+        sync(device)
+        if on_gpu:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eager = execute_chain(SimGrid(GRID), query, rels, **kw)
+        sync(device)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() if on_gpu else 0
+        peaks[(name, impl)] = peak
+        out, stats, overflow = eager
+        check(not bool(overflow), f"overlap {label}: overflow")
+        want = UNCHUNKED[name]
+        got_stats = {k: v.cpu() for k, v in stats.items()}
+        check(sorted(got_stats) == sorted(want["stats"])
+              and all(torch.equal(v, want["stats"][k])
+                      for k, v in got_stats.items()),
+              f"overlap {label}: stats {got_stats} != unchunked "
+              f"{want['stats']}")
+        groups = check_against_a3(w, out, aggregate)
+        if not aggregate:
+            check(torch.equal(packed_rows(w, out).cpu(), want["rows"]),
+                  f"overlap {label}: tuple multiset differs from the "
+                  f"unchunked run")
+        expect = {"segment_sum": aggregate, "probe_counts": impl == "fused",
+                  "hash_histogram": False}
+        for kname, used in expect.items():
+            check(counts[kname] > 0 or not used or not on_gpu,
+                  f"overlap {label}: the {kname} kernel was never launched")
+        for kname, c in counts.items():
+            launches[kname] += c
+        if on_gpu:
+            torch.cuda.empty_cache()
+
+        run = jit_execute_chain(SimGrid(GRID), query, donate=False, **kw)
+        t0 = time.perf_counter()
+        first = run(rels)
+        sync(device)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        check(same_result(first, eager),
+              f"overlap {label}: first compiled call differs from eager")
+        del first
+        replay_ms = []
+        for _ in range(REPLAYS):
+            t0 = time.perf_counter()
+            got = run(rels)
+            sync(device)
+            replay_ms.append((time.perf_counter() - t0) * 1e3)
+            check(same_result(got, eager),
+                  f"overlap {label}: replay differs from eager")
+            del got
+        got, traced = traced_launches(
+            lambda: run(rels), device, counts,
+            lambda got: same_result(got, eager), f"overlap {label} replay",
+            plan=run)
+        check(traced == counts or not on_gpu,
+              f"overlap {label}: replay launched {traced} != eager {counts}")
+        del got
+        for kname, c in traced.items():
+            launches[kname] += c
+        pool = graph_pool_bytes() if on_gpu else 0
+        twin = replays_3b.get((name, impl)) or replays_3b.get(
+            (name, "sort_merge"))
+        twin_label = impl if (name, impl) in replays_3b else "sort_merge"
+        del eager, out, stats, overflow, run
+        clear_compiled_caches()
+        if on_gpu:
+            torch.cuda.empty_cache()
+        del rels
+        log(f"overlap {label:22s} ok: groups={groups} stats bit-equal to "
+            f"the unchunked run; eager_ms={eager_ms:.1f} "
+            f"replay_ms={statistics.median(replay_ms):.1f} (median of "
+            f"{REPLAYS}; {min(replay_ms):.1f}..{max(replay_ms):.1f}) beside "
+            f"3b's unchunked {name} {twin_label} replay_ms="
+            f"{'not run' if twin is None else f'{twin:.1f}'}; "
+            f"capture_ms={capture_ms:.1f} peak_bytes={peak} "
+            f"pool_bytes={pool} launches={counts} traced_replay={traced}")
+
+    ops.reset_launches()
+    reports = op_audit.audit_lowerings(device=device)
+    counts = dict(ops.LAUNCHES)
+    bad = [r.summary() for r in reports if not r.ok or r.findings]
+    check(not bad, "op audit on the device: " + "; ".join(bad))
+    check(not on_gpu or counts["probe_counts"] > 0,
+          "op audit: fused lowerings launched no probe_counts kernel")
+    for kname, c in counts.items():
+        launches[kname] += c
+    clear_compiled_caches()
+    if on_gpu:
+        torch.cuda.empty_cache()
+    log(f"overlap op audit on {device.type} ok: {len(reports)} reports "
+        f"clean ({', '.join(r.target for r in reports)}); ops walked "
+        f"{sum(r.metrics.get('n_ops', 0) for r in reports)}; "
+        f"launches={counts}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2562,6 +2800,7 @@ def main(argv=None) -> int:
                    run_entry_points(w, dev),
                    run_store(w, per_slot, args.seed, dev),
                    run_recovery(w, args.seed, dev),
+                   run_overlap_path(w, replays, dev),
                    run_shares_skew(skew, dev), run_attention_entry(dev)):
         for name, c in counts.items():
             launches[name] += c
@@ -2586,6 +2825,10 @@ def main(argv=None) -> int:
                             library_ms=res["library_ms"],
                             shape=res["shape"]))
     log(f"trace retries: {len(TRACE_RETRIES)} {TRACE_RETRIES}")
+    differ = [t for t in TRACED_GRAPHS if t[1] != t[2]]
+    log(f"traced replays whose kernel records equal their graph's kernel "
+        f"nodes: {len(TRACED_GRAPHS) - len(differ)} of {len(TRACED_GRAPHS)}"
+        f" {differ}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,10 @@ tuples, as float32 device scalars; the final aggregator of a pushdown
 cascade is uncharged unless ``include_final_agg=True``.
 ``measure_skew=True`` adds ``stats["max_bucket_load"]``, the
 most-loaded reducer of any map-phase hop, from the ``hash_histogram``
-kernel.  ``overlap_chunks > 1`` is a
-later slice and raises ``NotImplementedError``.
+kernel.  ``overlap_chunks > 1`` selects the overlapped shuffle schedule
+on every strategy: the incoming relation of each round streams through
+its shuffle in row chunks, with the staged schedule's stats and
+overflow and the JAX package's overlapped output array for array.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from .local import groupby_sum, local_join
 from .partition import PartitionedRelation
 from .plan import ChainQuery, JoinQuery
 from .relation import Relation, concat
-from .shuffle import Grid, SimGrid, broadcast_along, shuffle_by_bucket
+from .shuffle import (Grid, SimGrid, broadcast_along, compact_to,
+                      concat_rows, shuffle_by_bucket, split_rows)
 from .two_way import two_way_join
 
 Stats = Dict[str, torch.Tensor]
@@ -104,13 +107,6 @@ def _false(rel: Relation, lead: int = 0) -> torch.Tensor:
     shape instead of standing for every lane."""
     return torch.zeros(rel.valid.shape[:lead], dtype=torch.bool,
                        device=rel.device)
-
-
-def _check_options(overlap_chunks: int) -> None:
-    if overlap_chunks > 1:
-        raise NotImplementedError("overlap_chunks > 1 (the overlapped "
-                                  "shuffle) is not ported to PyTorch yet "
-                                  "(ROADMAP A9)")
 
 
 def _zero(rel: Relation, lead: int = 0) -> torch.Tensor:
@@ -177,44 +173,92 @@ def place_relation(grid: Grid, query: JoinQuery, j: int, rel: Relation, *,
     return cur, overflow, skew
 
 
+def _join_chain(acc: Relation, steps, shard, out_caps: Sequence[int],
+                join_impl: str) -> Tuple[Relation, torch.Tensor]:
+    """Local joins of ``acc`` along ``steps`` (``(j, key, extras)``; the
+    right side of step i is ``shard(j)``, its output at ``out_caps[i]``),
+    cycle-closing filters applied at their hop.  Returns (result,
+    overflow per device)."""
+    ovf = torch.zeros_like(acc.valid[..., 0])
+    for i, (j, key, extras) in enumerate(steps):
+        right = shard(j)
+        if extras:
+            right = right.rename({a: _CLOSE + a for a in extras})
+        acc, o = local_join(acc, right, key, key, out_caps[i],
+                            impl=join_impl)
+        ovf = ovf | o
+        if extras:
+            acc = _close_cycle(acc, extras)
+    return acc, ovf
+
+
+def _reduce_caps(query: JoinQuery, caps: ChainCaps) -> List[int]:
+    """Output capacity of each hop of the reduce-side chain: ``mid``,
+    then ``out`` (``join`` when an aggregated query must materialize
+    the raw join)."""
+    n = query.n_relations
+    return [caps.mid] * (n - 2) + [caps.join if (query.aggregate and
+                                                 caps.join) else caps.out]
+
+
 def reduce_side_fn(query: JoinQuery, order: Sequence[int], *,
                    caps: ChainCaps, join_impl: str = "sort_merge"):
     """The per-device reduce function of a one-round join: the left-deep
     chain of local joins along ``order``, cycle-closing filters applied
     at their hop.  Returns ``reduce(*shards) -> (acc, overflow)``, with
     the overflow per device."""
-    n = query.n_relations
     steps = query.join_steps(tuple(order))
-    out_caps = [caps.mid] * (n - 2) + [caps.join if (query.aggregate and
-                                                     caps.join) else caps.out]
+    out_caps = _reduce_caps(query, caps)
 
     def reduce_side(*shards: Relation):
-        acc = shards[order[0]]
-        ovf = torch.zeros_like(acc.valid[..., 0])
-        for i, (j, key, extras) in enumerate(steps):
-            right = shards[j]
-            if extras:
-                right = right.rename({a: _CLOSE + a for a in extras})
-            acc, o = local_join(acc, right, key, key, out_caps[i],
-                                impl=join_impl)
-            ovf = ovf | o
-            if extras:
-                acc = _close_cycle(acc, extras)
-        return acc, ovf
+        return _join_chain(shards[order[0]], steps, shards.__getitem__,
+                           out_caps, join_impl)
 
     return reduce_side
+
+
+def _reduce_split_fns(query: JoinQuery, order: Sequence[int], *,
+                      caps: ChainCaps, join_impl: str = "sort_merge"):
+    """:func:`reduce_side_fn` split at its last hop, for the overlapped
+    one-round schedule: ``head`` runs the chain over every relation but
+    ``order[-1]`` (computed once), ``tail(acc, shard)`` applies the
+    final join and closing filters (run per placement chunk).  Returns
+    ``(js_head, head, tail, final_cap)``, ``js_head`` the relation
+    indices ``head`` consumes, in ascending order."""
+    steps = query.join_steps(tuple(order))
+    out_caps = _reduce_caps(query, caps)
+    js_head = tuple(j for j in range(query.n_relations) if j != steps[-1][0])
+
+    def head(*shards: Relation):
+        sh = dict(zip(js_head, shards))
+        return _join_chain(sh[order[0]], steps[:-1], sh.__getitem__,
+                           out_caps, join_impl)
+
+    def tail(acc: Relation, shard: Relation):
+        return _join_chain(acc, steps[-1:], lambda _: shard, out_caps[-1:],
+                           join_impl)
+
+    return js_head, head, tail, out_caps[-1]
 
 
 def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                     caps: ChainCaps, join_order: Optional[Sequence[int]] = None,
                     measure_skew: bool = False,
                     join_impl: str = "sort_merge",
+                    overlap_chunks: int = 1,
                     ) -> Tuple[Relation, Stats, torch.Tensor]:
     """One MapReduce round: place every relation on the join-attribute
     hypercube, then join locally along ``join_order`` (default: the
     query's greedy connected order).  Shuffled cost is Σ_j r_j · K /
     (∏ shares R_j pins), measured exactly.  An aggregated query ships
-    the raw join to the aggregators in one more, charged, round."""
+    the raw join to the aggregators in one more, charged, round.
+
+    ``overlap_chunks > 1`` selects the overlapped schedule: the last
+    relation in the join order streams through placement in that many
+    row chunks, each placed and joined against the head of the chain
+    (computed once) before the next.  Accounting,
+    skew measurement and the overflow condition are the staged
+    schedule's; the output is the JAX package's overlapped one."""
     n = query.n_relations
     query.check_relations(rels)
     if len(grid.shape) != query.n_dims:
@@ -227,21 +271,68 @@ def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
         else query.default_join_order()
 
     skew = _zero(rels[0], grid.lead)
-    placed: List[Relation] = []
-    for j, rel in enumerate(rels):
-        cur, ovf, sk = place_relation(grid, query, j, rel, caps=caps,
-                                      measure_skew=measure_skew)
-        overflow = overflow | ovf
-        skew = torch.maximum(skew, sk)
-        placed.append(cur)
-    # Measured shuffle = tuples resident at reducers after placement
-    # (each relation counted with its replication factor).
-    received = sum(_count(grid, p) for p in placed)
+    if overlap_chunks <= 1 or n < 2:
+        placed: List[Relation] = []
+        for j, rel in enumerate(rels):
+            cur, ovf, sk = place_relation(grid, query, j, rel, caps=caps,
+                                          measure_skew=measure_skew)
+            overflow = overflow | ovf
+            skew = torch.maximum(skew, sk)
+            placed.append(cur)
+        # Measured shuffle = tuples resident at reducers after placement
+        # (each relation counted with its replication factor).
+        received = sum(_count(grid, p) for p in placed)
 
-    reduce_side = reduce_side_fn(query, order, caps=caps, join_impl=join_impl)
-    joined, ovf_j = reduce_side(*placed)
-    del placed
-    overflow = overflow | grid.reduce_any(ovf_j)
+        reduce_side = reduce_side_fn(query, order, caps=caps,
+                                     join_impl=join_impl)
+        joined, ovf_j = reduce_side(*placed)
+        del placed
+        overflow = overflow | grid.reduce_any(ovf_j)
+    else:
+        # Place every relation but the last in the join order, run the
+        # head chain once, then stream the last relation through in row
+        # chunks: chunk b+1's placement has no dependency on chunk b's
+        # join.  The chunks partition the rows, so received counts and
+        # the overflow condition equal the staged schedule's.
+        js_head, head, tail, final_cap = _reduce_split_fns(
+            query, order, caps=caps, join_impl=join_impl)
+        last = order[-1]
+        placed_head: Dict[int, Relation] = {}
+        for j in js_head:
+            cur, ovf, sk = place_relation(grid, query, j, rels[j], caps=caps,
+                                          measure_skew=measure_skew)
+            overflow = overflow | ovf
+            skew = torch.maximum(skew, sk)
+            placed_head[j] = cur
+        if measure_skew:
+            # The last relation's hop histograms, measured on the full
+            # input (the staged measurement; a chunk's sees a subset).
+            for d in query.hashed_dims(last):
+                if grid.shape[d] == 1:
+                    continue
+                skew = torch.maximum(skew, _hop_load(
+                    grid, rels[last], query.dim_attr(d), grid.shape[d],
+                    salt=d))
+        acc, ovf_h = head(*[placed_head[j] for j in js_head])
+        overflow = overflow | grid.reduce_any(ovf_h)
+        received = sum(_count(grid, p) for p in placed_head.values())
+        del placed_head
+
+        parts: List[Relation] = []
+        for chunk in split_rows(rels[last], overlap_chunks):
+            pc, ovf_c, _ = place_relation(grid, query, last, chunk, caps=caps)
+            received = received + _count(grid, pc)
+            out_c, ovf_t = tail(acc, pc)
+            overflow = overflow | ovf_c | grid.reduce_any(ovf_t)
+            parts.append(out_c)
+        del acc
+        # Chunk matches are subsets of the staged hop's, so the chunk
+        # joins at final_cap cannot overflow unless the staged join
+        # would; the compaction reimposes the staged capacity and its
+        # overflow condition.
+        joined, ovf_cc = compact_to(grid, concat_rows(parts), final_cap)
+        del parts
+        overflow = overflow | ovf_cc
     stats: Stats = {
         "read": read.to(torch.float32),
         "shuffled": received.to(torch.float32),
@@ -268,11 +359,13 @@ def one_round_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
 def one_round_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                     caps: ChainCaps, measure_skew: bool = False,
                     join_impl: str = "sort_merge",
+                    overlap_chunks: int = 1,
                     ) -> Tuple[Relation, Stats, torch.Tensor]:
     """The chain instance of :func:`one_round_query` (default join order
     ``0..N−1`` on the rank-(N−1) grid)."""
     return one_round_query(grid, query, rels, caps=caps,
-                           measure_skew=measure_skew, join_impl=join_impl)
+                           measure_skew=measure_skew, join_impl=join_impl,
+                           overlap_chunks=overlap_chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -297,14 +390,15 @@ def _final_aggregate(grid: Grid, query: JoinQuery, left: Relation,
 def cascade_hop(grid: Grid, left: Relation, right: Relation, key: str,
                 extras: Sequence[str], *, i: int, last: bool,
                 left_cap: Optional[int], caps: ChainCaps,
-                join_impl: str = "sort_merge",
+                join_impl: str = "sort_merge", overlap_chunks: int = 1,
                 ) -> Tuple[Relation, Stats, torch.Tensor, int]:
     """Round ``i`` of :func:`cascade_query`: ``left ⋈ right`` on ``key``
     with the round's salt, receive and local buffers grown to the
     previous round's output capacity ``left_cap`` (None in the first
     round), then the cycle-closing filters on ``extras``.  Returns
     (result, stats, overflow, the result's capacity: ``caps.out`` in the
-    ``last`` round, else ``caps.mid``)."""
+    ``last`` round, else ``caps.mid``).  ``overlap_chunks`` selects the
+    round's shuffle schedule (:func:`two_way_join`)."""
     if extras:
         right = right.rename({a: _CLOSE + a for a in extras})
     recv = caps.recv if left_cap is None else max(left_cap, caps.recv)
@@ -313,7 +407,7 @@ def cascade_hop(grid: Grid, left: Relation, right: Relation, key: str,
     out, st, ovf = two_way_join(
         grid, left, right, key, key, recv_capacity=recv,
         out_capacity=out_cap, local_capacity=local, salt=i,
-        join_impl=join_impl)
+        join_impl=join_impl, overlap_chunks=overlap_chunks)
     if extras:
         out = _close_cycle(out, extras)
     return out, st, ovf, out_cap
@@ -322,14 +416,16 @@ def cascade_hop(grid: Grid, left: Relation, right: Relation, key: str,
 def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                   caps: ChainCaps, join_order: Optional[Sequence[int]] = None,
                   local_combine: bool = False, measure_skew: bool = False,
-                  join_impl: str = "sort_merge",
+                  join_impl: str = "sort_merge", overlap_chunks: int = 1,
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
     """N−1 rounds of two-way joins along a connected left-deep
     ``join_order`` (default: the query's greedy order).  Further shared
     attributes — the cycle-closing predicates — filter per device at
     their hop; aggregated queries run one final *charged* aggregation
     round.  The measured total equals
-    :func:`~repro_torch.core.cost_model.cost_query_cascade` exactly."""
+    :func:`~repro_torch.core.cost_model.cost_query_cascade` exactly.
+    ``overlap_chunks > 1`` runs every round on the overlapped schedule
+    (:func:`two_way_join`), with identical accounting and overflow."""
     n = query.n_relations
     query.check_relations(rels)
     order = tuple(join_order) if join_order is not None \
@@ -353,7 +449,8 @@ def cascade_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                                                  salt=i))
         left, st, ovf, left_cap = cascade_hop(
             grid, left, rels[j], key, extras, i=i, last=i == n - 2,
-            left_cap=left_cap, caps=caps, join_impl=join_impl)
+            left_cap=left_cap, caps=caps, join_impl=join_impl,
+            overlap_chunks=overlap_chunks)
         all_stats.append(st)
         overflow = overflow | ovf
         if query.values[j]:
@@ -375,7 +472,7 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                   caps: ChainCaps, pushdown: bool = True,
                   local_combine: bool = False, measure_skew: bool = False,
                   include_final_agg: bool = False,
-                  join_impl: str = "sort_merge",
+                  join_impl: str = "sort_merge", overlap_chunks: int = 1,
                   ) -> Tuple[Relation, Stats, torch.Tensor]:
     """N−1 rounds of two-way joins, left-deep in query order.
 
@@ -383,7 +480,8 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     followed by Γ_{A_1, A_{j+2}; SUM} of the running value product — the
     paper's 2,3JA generalized; the final aggregator is uncharged unless
     ``include_final_agg=True``.  Without pushdown the aggregation runs
-    once at the end and is charged.
+    once at the end and is charged.  ``overlap_chunks`` selects every
+    round's shuffle schedule (:func:`two_way_join`).
     """
     n = query.n_relations
     query.check_relations(rels)
@@ -412,7 +510,7 @@ def cascade_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
         left, st, ovf = two_way_join(
             grid, left, rels[j], key, key, recv_capacity=recv,
             out_capacity=out_cap, local_capacity=local, salt=j - 1,
-            join_impl=join_impl)
+            join_impl=join_impl, overlap_chunks=overlap_chunks)
         all_stats.append(st)
         overflow = overflow | ovf
         left_cap = out_cap
@@ -510,7 +608,7 @@ def _empty_skew_result(query: ChainQuery, rels: Sequence[Relation],
 
 def shares_skew_chain(query: ChainQuery, rels: Sequence[Relation], plan, *,
                       caps, measure_skew: bool = False,
-                      join_impl: str = "sort_merge",
+                      join_impl: str = "sort_merge", overlap_chunks: int = 1,
                       ) -> Tuple[Relation, Stats, torch.Tensor]:
     """SkewSplit lowering (SharesSkew, 1,NJS): one Shares sub-join per
     heavy/residual combination, unioned.
@@ -530,7 +628,8 @@ def shares_skew_chain(query: ChainQuery, rels: Sequence[Relation], plan, *,
     (``max_bucket_load`` maxes), so the measured total equals
     ``plan.cost()`` for enumeration and ``plan.cost() + 2·|full join|``
     for aggregated queries.  A plan with no combinations proves the
-    join empty: an empty relation at zero cost.
+    join empty: an empty relation at zero cost.  ``overlap_chunks``
+    selects each sub-join's schedule (:func:`one_round_query`).
     """
     query.check_relations(rels)
     if not plan.combos:
@@ -546,7 +645,8 @@ def shares_skew_chain(query: ChainQuery, rels: Sequence[Relation], plan, *,
         out, st, ovf = one_round_chain(SimGrid(combo.grid_shape), query, sub,
                                        caps=combo_caps,
                                        measure_skew=measure_skew,
-                                       join_impl=join_impl)
+                                       join_impl=join_impl,
+                                       overlap_chunks=overlap_chunks)
         del sub
         parts.append(_flatten_grid(out))
         all_stats.append(st)
@@ -627,9 +727,10 @@ def mapside_cascade_chain(grid: Grid, query: ChainQuery, rels, *,
     ``"hop_placed"`` (against
     :func:`~repro_torch.core.cost_model.chain_mapside_placed`), one
     entry per hop on the last axis.  Aggregated queries run one final
-    charged Γ round (no pushdown on this path).
+    charged Γ round (no pushdown on this path).  ``overlap_chunks``
+    selects the shuffled hops' schedule (:func:`two_way_join`); the
+    map-side and broadcast hops move no chunked relation.
     """
-    _check_options(overlap_chunks)
     n = query.n_relations
     P = partitioning.num_partitions
     if len(grid.shape) != 1 or grid.shape[0] != P:
@@ -679,7 +780,7 @@ def mapside_cascade_chain(grid: Grid, query: ChainQuery, rels, *,
             left, st, ovf = two_way_join(
                 grid, left, right, key, key, recv_capacity=recv,
                 out_capacity=out_cap, local_capacity=local, salt=j - 1,
-                join_impl=join_impl)
+                join_impl=join_impl, overlap_chunks=overlap_chunks)
             all_stats.append(st)
             hop_shuffled.append(st["shuffled"])
             overflow = overflow | ovf
@@ -779,7 +880,10 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     ``join_impl`` selects the reduce-side join for every strategy:
     ``"sort_merge"`` (default), ``"fused"`` (rank-packed sorts and the
     ``probe_counts`` kernel) or the ``"all_pairs"`` oracle — identical
-    tuple sets, stats and overflow flags.  ``measure_skew=True`` adds
+    tuple sets, stats and overflow flags.  ``overlap_chunks > 1``
+    selects the overlapped shuffle schedule on every strategy: identical
+    accounting and overflow, per-device row order the JAX package's
+    overlapped one.  ``measure_skew=True`` adds
     ``stats["max_bucket_load"]``; ``include_final_agg=True`` charges the
     pushdown cascade's final Γ.  Returns ``(result, stats,
     overflow)``; everything stays on the inputs' device.  On a laned
@@ -790,7 +894,6 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     grid — so it has its own entry point, :func:`shares_skew_chain`,
     taking flat relations plus a ``SkewSplitPlan``.
     """
-    _check_options(overlap_chunks)
     if strategy == "mapside":
         if partitioning is None or hop_modes is None:
             raise ValueError("mapside needs partitioning and hop_modes "
@@ -800,7 +903,8 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                                      hop_modes=hop_modes,
                                      place_output=place_output,
                                      measure_skew=measure_skew,
-                                     join_impl=join_impl)
+                                     join_impl=join_impl,
+                                     overlap_chunks=overlap_chunks)
     if strategy == "shares_skew":
         raise ValueError(
             "shares_skew runs per-combination grids; call "
@@ -809,11 +913,13 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
     if strategy == "one_round":
         return one_round_chain(grid, query, rels, caps=caps,
                                measure_skew=measure_skew,
-                               join_impl=join_impl)
+                               join_impl=join_impl,
+                               overlap_chunks=overlap_chunks)
     if strategy == "cascade":
         return cascade_chain(grid, query, rels, caps=caps, pushdown=False,
                              local_combine=local_combine,
-                             measure_skew=measure_skew, join_impl=join_impl)
+                             measure_skew=measure_skew, join_impl=join_impl,
+                             overlap_chunks=overlap_chunks)
     if strategy == "cascade_pushdown":
         if query.aggregate is None:
             raise ValueError("cascade_pushdown needs an aggregated query")
@@ -821,7 +927,8 @@ def execute_chain(grid: Grid, query: ChainQuery, rels: Sequence[Relation], *,
                              local_combine=local_combine,
                              measure_skew=measure_skew,
                              include_final_agg=include_final_agg,
-                             join_impl=join_impl)
+                             join_impl=join_impl,
+                             overlap_chunks=overlap_chunks)
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
@@ -837,18 +944,20 @@ def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
     connected hypergraph — with ``"one_round"``, ``"cascade"`` or (chains
     in relation order only) ``"cascade_pushdown"``.  The skew-aware
     ``"shares_skew"`` strategy stays chain-only — see
-    :func:`shares_skew_chain`."""
-    _check_options(overlap_chunks)
+    :func:`shares_skew_chain`.  ``overlap_chunks`` selects the shuffle
+    schedule, as in :func:`execute_chain`."""
     if strategy == "one_round":
         return one_round_query(grid, query, rels, caps=caps,
                                join_order=join_order,
                                measure_skew=measure_skew,
-                               join_impl=join_impl)
+                               join_impl=join_impl,
+                               overlap_chunks=overlap_chunks)
     if strategy == "cascade":
         return cascade_query(grid, query, rels, caps=caps,
                              join_order=join_order,
                              local_combine=local_combine,
-                             measure_skew=measure_skew, join_impl=join_impl)
+                             measure_skew=measure_skew, join_impl=join_impl,
+                             overlap_chunks=overlap_chunks)
     if strategy == "cascade_pushdown":
         order = query.chain_attr_order()
         if query.aggregate is None or order is None or order != query.attrs:
@@ -859,7 +968,8 @@ def execute_query(grid: Grid, query: JoinQuery, rels: Sequence[Relation], *,
                              local_combine=local_combine,
                              measure_skew=measure_skew,
                              include_final_agg=include_final_agg,
-                             join_impl=join_impl)
+                             join_impl=join_impl,
+                             overlap_chunks=overlap_chunks)
     if strategy == "shares_skew":
         raise ValueError(
             "shares_skew runs per-combination grids and is chain-only; call "
@@ -941,7 +1051,9 @@ class _Graph:
         pool = _POOLS.get(device)
         if pool is None:
             pool = _POOLS[device] = torch.cuda.graph_pool_handle()
-        self.graph = torch.cuda.CUDAGraph()
+        # The captured graph is kept beside its executable, so its
+        # nodes can be read (``raw_cuda_graph``).
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         # torch.cuda.graph synchronizes and empties the allocator's
         # cache first, which returns the warm-up's memory for the pool
         # to grow into.
@@ -954,6 +1066,7 @@ class _Graph:
             # capture): later graphs start a fresh pool.
             _POOLS.pop(device, None)
             raise
+        self.graph.instantiate()
 
     def replay(self, rels: Sequence[Relation]):
         """Copy ``rels`` in, replay, and return clones of the outputs.
@@ -1002,16 +1115,9 @@ class CompiledPlan:
         return fn(self.grid, self.query, list(rels), strategy=self.strategy,
                   caps=self.caps, **self.opts)
 
-    def check_ported(self) -> None:
-        """Raise, without running anything, the ``NotImplementedError``
-        of an option this port does not have yet (``overlap_chunks >
-        1``: A9)."""
-        _check_options(self.opts.get("overlap_chunks", 1))
-
     def __call__(self, rels: Sequence):
         global _compiled_calls
         rels = list(rels)
-        self.check_ported()
         _compiled_calls += 1
         try:
             if not _relation(rels[0]).valid.is_cuda:
@@ -1088,9 +1194,9 @@ def jit_execute_chain(grid: Grid, query: ChainQuery, *, strategy: str,
     copies the inputs into its own buffers and never reads the caller's
     tensors after the call, so donating or not changes nothing else.
     Options (``measure_skew``, ``local_combine``, ``include_final_agg``,
-    ``join_impl``, ``overlap_chunks``) forward to :func:`execute_chain`
-    and are part of the cache key; options of
-    later slices raise from the call, not from the cache lookup.
+    ``join_impl``, ``overlap_chunks``, and the map-side ``partitioning``
+    / ``hop_modes`` / ``place_output``) forward to :func:`execute_chain`
+    and are part of the cache key.
     """
     return _compiled(grid, query, strategy, caps, donate, opts, chain=True)
 
@@ -1103,8 +1209,8 @@ def jit_execute_query(grid: Grid, query: JoinQuery, *, strategy: str,
     caching, donation, and reuse semantics).  Options (``join_order``,
     ``measure_skew``, ``local_combine``, ``join_impl``) forward to
     :func:`execute_query`; a ``join_order`` list must be passed as a
-    tuple (the cache key hashes it).  ``include_final_agg`` forwards
-    too."""
+    tuple (the cache key hashes it).  ``include_final_agg`` and
+    ``overlap_chunks`` forward too."""
     return _compiled(grid, query, strategy, caps, donate, opts, chain=False)
 
 

@@ -8,19 +8,21 @@ per-device work runs on the whole grid in one call (the JAX package's
 into the receive shards and an all-gather a broadcast.  ``SimGrid(shape,
 lanes=L)`` adds one lane axis ahead of the grid axes — the port's
 ``jax.vmap`` over a whole execution: lanes never exchange tuples, and
-every grid reduction answers per lane.  The ``torch.distributed`` grid
-(the JAX package's ``ShardGrid``) is a later slice.
+every grid reduction answers per lane.  :func:`split_rows` and
+:func:`concat_rows` carry the overlapped (chunked) shuffle schedule.
+The ``torch.distributed`` grid (the JAX package's ``ShardGrid``) is a
+later slice.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .local import partition_ranks
-from .relation import Relation, flatten_leading
+from .relation import Relation, concat, flatten_leading
 
 
 class Grid:
@@ -190,6 +192,39 @@ def shuffle_by_bucket(grid: Grid, rel: Relation, bucket: torch.Tensor,
     local = Relation({n: scatter(c) for n, c in rel.cols.items()},
                      scatter(torch.ones_like(rel.valid)))
     return _inject("shuffle", local), overflow, n_sent
+
+
+# ---------------------------------------------------------------------------
+# Overlapped (chunked) shuffle schedule
+# ---------------------------------------------------------------------------
+#
+# The staged schedule blocks every reduce step on one completed shuffle.
+# The overlapped schedule splits a relation's rows into C contiguous
+# blocks and shuffles each block on its own, so block b+1's shuffle has
+# no data dependency on block b's local join.  The blocks partition the
+# rows exactly, so per-hop received counts sum to the unchunked count.
+# The port runs the blocks one after another on the current stream, on
+# every device: a side stream for the next block's shuffle bought no
+# time on an H100 and cost graph-pool memory (PERF.md §6).
+
+def split_rows(rel: Relation, chunks: int) -> List[Relation]:
+    """Partition a relation's rows (the trailing capacity axis: flat,
+    grid-leading and laned layouts alike) into ``chunks`` contiguous
+    blocks, cut at ``(c·cap)//chunks`` with ``chunks`` clamped to
+    ``[1, cap]``.  Valid rows need not be front-packed; positional
+    slicing still partitions them exactly."""
+    cap = rel.capacity
+    chunks = max(1, min(int(chunks), cap))
+    bounds = [(c * cap) // chunks for c in range(chunks + 1)]
+    return [rel.map(lambda t, a=a, b=b: t[..., a:b])
+            for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def concat_rows(rels: Sequence[Relation]) -> Relation:
+    """Concatenate relations along the trailing capacity axis: the
+    inverse of :func:`split_rows` up to row order (it merges the
+    per-chunk join outputs before the final compaction)."""
+    return concat(rels)
 
 
 def broadcast_along(grid: Grid, rel: Relation, grid_axis: int,

@@ -55,11 +55,15 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def traced_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
+def traced_launches(fn: Callable[[], Any]
+                    ) -> Tuple[Any, Dict[str, int], int]:
     """Run ``fn()`` under ``torch.profiler`` and count each kernel's
     records in the device trace (:data:`KERNEL_SYMBOLS`): the launches
     that ran on the card during the call, those of a CUDA-graph replay
-    included.  Returns ``(fn(), counts)``."""
+    included.  Returns ``(fn(), counts, n_kernels)``, ``n_kernels`` the
+    records of any kernel in the trace: copies and memsets left out,
+    also those the driver runs as kernels of its own (``memset32``,
+    ``memcpy32_post``: a CUDA graph's memset and copy nodes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -70,10 +74,13 @@ def traced_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
         result = fn()
         torch.cuda.synchronize()
     counts = {name: 0 for name in KERNEL_SYMBOLS}
+    n_kernels = 0
     for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:
+        if (event.device_type != DeviceType.CUDA
+                or event.key.lower().startswith(("memcpy", "memset"))):
             continue
+        n_kernels += event.count
         for name, pat in pattern.items():
             if pat.search(event.key):
                 counts[name] += event.count
-    return result, counts
+    return result, counts, n_kernels

@@ -758,10 +758,6 @@ class QueryEngine:
             entry = None
             try:
                 key, entry, hit = self._resolve(req)
-                # An option the port lacks (overlap_chunks > 1: A9)
-                # fails this request alone, before the breaker sees it;
-                # the entry stays cached, so a retry hits.
-                entry.run.check_ported()
                 if prebuilt is not None and prebuilt[i] is not None:
                     rels = self._adapt_prebuilt(tuple(prebuilt[i]), entry)
                 else:

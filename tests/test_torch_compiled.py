@@ -172,11 +172,10 @@ def mapside_inputs(query, edges=EDGES, parts=4):
     (dict(overlap_chunks=2), "A9"), (dict(strategy="mapside"), "A11")],
     ids=["overlap_chunks", "mapside"])
 def test_later_slices_raise_from_the_call(option, item):
-    """An option of a later slice (``overlap_chunks > 1``) compiles (the
-    cache lookup succeeds, so the flips above can miss) and raises
-    ``NotImplementedError`` naming its ROADMAP item when the executable
-    runs.  ``strategy="mapside"`` (A11) is ported: a compiled map-side
-    run over stored partitions equals the eager one."""
+    """Both options of later slices are ported now, and neither raises
+    from the call: a compiled overlapped run (``overlap_chunks=2``, A9)
+    and a compiled map-side run over stored partitions
+    (``strategy="mapside"``, A11) each equal the eager one."""
     q = T.ChainQuery.three_way()
     kw = dict(strategy="cascade", caps=CAPS)
     kw.update(option)
@@ -192,9 +191,17 @@ def test_later_slices_raise_from_the_call(option, item):
         assert_equal_results(got, as_numpy(
             T.execute_chain(T.SimGrid((4,)), q, prels, **kw)))
         return
-    run = T.jit_execute_chain(T.SimGrid(GRID), q, **kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run(port_inputs(q))
+    run = T.jit_execute_chain(T.SimGrid(GRID), q, donate=False, **kw)
+    rels = port_inputs(q)
+    got = run(rels)
+    assert not bool(got[2])
+    assert_equal_results(got, as_numpy(
+        T.execute_chain(T.SimGrid(GRID), q, rels, **kw)))
+    staged = T.execute_chain(T.SimGrid(GRID), q, rels, strategy="cascade",
+                             caps=CAPS)
+    assert got[0].to_tuple_set() == staged[0].to_tuple_set()
+    assert {k: float(v) for k, v in got[1].items()} == \
+        {k: float(v) for k, v in staged[1].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +318,7 @@ def test_every_strategy_captures_and_replays_equal_to_eager(
               measure_skew=measure)
     rels = port_inputs(q, device=cuda)
     ops.reset_launches()
-    eager, traced = ops.traced_launches(
+    eager, traced, _ = ops.traced_launches(
         lambda: T.execute_chain(T.SimGrid(GRID), q, rels, **kw))
     per_call = dict(ops.LAUNCHES)
     assert traced == per_call              # the trace counts as the wrappers
@@ -324,7 +331,7 @@ def test_every_strategy_captures_and_replays_equal_to_eager(
     assert len(run._graphs) == 1
     for _ in range(2):
         ops.reset_launches()
-        got, traced = ops.traced_launches(lambda: run(rels))
+        got, traced, _ = ops.traced_launches(lambda: run(rels))
         assert traced == per_call
         assert not any(ops.LAUNCHES.values())  # a replay runs no wrapper
         assert_equal_results(got, want)
@@ -439,7 +446,7 @@ def test_mapside_captures_and_replays_equal_to_eager(cuda, kind):
         got = run(rels)
         torch.cuda.synchronize()
         assert_equal_results(got, want)
-    _, traced = ops.traced_launches(lambda: run(rels))
+    _, traced, _ = ops.traced_launches(lambda: run(rels))
     assert traced == counted
     assert counted["probe_counts"] > 0
     assert counted["segment_sum"] > 0 or kind == "mixed"

@@ -73,7 +73,8 @@ def test_stats_plans_and_caps_match_jax():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_reference(aggregate, strategy, local_combine=False):
+def jax_reference(aggregate, strategy, local_combine=False,
+                  overlap_chunks=1):
     """The JAX package's ``(cols, valid, stats, overflow)`` as numpy.
 
     Run jitted (the JAX package's own tests hold it equal to the eager
@@ -86,7 +87,8 @@ def jax_reference(aggregate, strategy, local_combine=False):
     run = jit_execute_chain(J.SimGrid(GRID), jq, strategy=strategy,
                             caps=J.ChainCaps(**dataclasses.asdict(CAPS)),
                             donate=False, join_impl="sort_merge",
-                            local_combine=local_combine)
+                            local_combine=local_combine,
+                            overlap_chunks=overlap_chunks)
     out, stats, ovf = run(J.chain_edge_inputs(jq, EDGES, GRID))
     return ({n: np.asarray(c) for n, c in out.cols.items()},
             np.asarray(out.valid), {k: float(v) for k, v in stats.items()},
@@ -219,12 +221,14 @@ def test_execute_query_triangle_matches_jax(strategy, grid):
     dict(strategy="mapside"), dict(strategy="shares_skew")],
     ids=["measure_skew", "overlap_chunks", "mapside", "shares_skew"])
 def test_later_slices_raise_not_implemented(option):
-    """Options of later slices raise ``NotImplementedError`` naming their
-    ROADMAP item.  Three options of this list are ported now:
-    ``measure_skew`` runs and adds ``max_bucket_load``, ``shares_skew``
-    raises the reference's ``ValueError`` pointing to its own entry
-    point, ``shares_skew_chain``, and ``mapside`` without a certificate
-    raises the reference's ``ValueError`` asking for one."""
+    """Options of later slices once raised ``NotImplementedError``; all
+    four are ported now: ``measure_skew`` runs and adds
+    ``max_bucket_load``, ``overlap_chunks=2`` runs the overlapped
+    schedule equal to the JAX package's overlapped run as full arrays,
+    ``shares_skew`` raises the reference's ``ValueError`` pointing to
+    its own entry point, ``shares_skew_chain``, and ``mapside`` without
+    a certificate raises the reference's ``ValueError`` asking for
+    one."""
     q = T.ChainQuery.three_way()
     rels = T.chain_edge_inputs(q, EDGES, GRID, device="cpu")
     kw = dict(strategy="cascade", caps=CAPS)
@@ -240,8 +244,10 @@ def test_later_slices_raise_not_implemented(option):
         with pytest.raises(ValueError, match="partitioning and hop_modes"):
             T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
+        got = T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
+        assert_matches_reference(got, jax_reference(False, "cascade",
+                                                    overlap_chunks=2))
+        assert result_total(got[0], False) == STATS.prefix_joins[-1]
 
 
 def test_unknown_strategy_and_missing_aggregate_raise():
