@@ -88,6 +88,23 @@ Phases, each failing the run on any error:
    to eager array for array; eager ms, replay ms beside 3b's unchunked
    replay, peak and pool bytes.  Then ``op_audit.audit_lowerings`` on
    the card, every report clean.
+3i. The ShardGrid: ``spawn`` starts 8 ranks on a (2, 2, 2) ``("pod",
+   "data", "model")`` mesh, their shards in CUDA memory (``nccl`` with 8
+   cards, else ``gloo`` with every rank on this card), at the largest
+   scale <= 14 whose reckoned bytes fit.  They run the triangle query
+   ``one_round`` on (2, 2, 2); 2,3J and 2,3JA on the flat (8,) at
+   ``overlap_chunks`` 1 and 2, one 2,3JA ``fused`` with
+   ``measure_skew=True`` (every rank launches ``segment_sum``,
+   ``probe_counts`` and ``bucket_counts``); MS,3J from a store of 8
+   partitions; 1,3JA through ``one_round_three_way_agg`` on (4, 2).
+   Each rank's relation (SHA-256 of every column), stats and flag
+   equal the SimGrid run's slice, which was run here first and held to
+   A³ / trace(A³) / the tuple multiset and the cost model; the
+   cascades' ``audit_collectives`` count more all-to-alls overlapped
+   than staged and find no full-relation gather.  Wall ms per run is
+   the max over the ranks (ranks sharing one card).  Then a one-rank
+   ``nccl`` group: ``jit_execute_chain`` of 2,3J on ``ShardGrid`` (1,)
+   captured, its replay equal to eager and to ``SimGrid((1,))``.
 4. The skew path at full size: ``zipf_edges(131072, 8192, 1.0)`` as all
    three relations at k = 256, ``detect_chain_skew`` then
    ``shares_skew_chain`` (``measure_skew=True``) for enumeration
@@ -107,6 +124,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import tempfile
 import subprocess
@@ -771,17 +789,18 @@ def serve_repeated(eng, label: str, query, tables, stats, check_result,
                 measured=cold.measured, launches=traced), traced
 
 
-def fitting_scale(label: str, top: int, reckon, device: torch.device):
+def fitting_scale(label: str, top: int, reckon, device: torch.device,
+                  phase: str = "serve"):
     """The largest scale from ``top`` down whose reckoned bytes fit
     beside the graph pool; ``reckon(scale) -> (bytes, payload)``.
-    Returns ``(scale, payload)`` and logs every cut."""
+    Returns ``(scale, payload)`` and logs every cut, under ``phase``."""
     scale = top
     while True:
         need, payload = reckon(scale)
         ok, free = fits(need, device)
         if ok:
             return scale, payload
-        log(f"serve {label}: scale {scale} reckoned {need:.0f} bytes, "
+        log(f"{phase} {label}: scale {scale} reckoned {need:.0f} bytes, "
             f"{free:.0f} free beside the pool: cut to scale {scale - 1}")
         scale -= 1
 
@@ -984,15 +1003,15 @@ def store_columns(edges):
     return r_dst, s_src, t_src
 
 
-def part_capacity_for(edges) -> tuple[int, str]:
+def part_capacity_for(edges, P: int = MS_P) -> tuple[int, str]:
     """``default_part_capacity``, unless R-MAT's hubs fill a partition
     past it: then the exact per-partition counts × 1.05 + 256."""
     from repro_torch.core import default_part_capacity
     from repro_torch.core.hashing import bucket_hash
-    default = default_part_capacity(len(edges[0][0]), MS_P)
+    default = default_part_capacity(len(edges[0][0]), P)
     fullest = max(int(np.bincount(bucket_hash(torch.as_tensor(col),
-                                              MS_P).numpy(),
-                                  minlength=MS_P).max())
+                                              P).numpy(),
+                                  minlength=P).max())
                   for col in store_columns(edges))
     if fullest <= default:
         return default, f"default_part_capacity {default} (fullest {fullest})"
@@ -1001,7 +1020,7 @@ def part_capacity_for(edges) -> tuple[int, str]:
 
 
 def store_and_load(edges, part_cap: int, directory: str, tag: str,
-                   device: torch.device):
+                   device: torch.device, P: int = MS_P):
     """``partition_relation`` on the card → ``save_partitioned`` →
     ``load_partitioned`` (CRCs checked) → ``verify_partition_layout``,
     each relation; the certificate from the manifests alone."""
@@ -1014,7 +1033,7 @@ def store_and_load(edges, part_cap: int, directory: str, tag: str,
     prels = []
     for j, (src, dst) in enumerate(edges):
         rel = edge_relation(src, dst, names=query.schema(j), device=device)
-        pr, ovf = partition_relation(rel, store_key(query, j), MS_P,
+        pr, ovf = partition_relation(rel, store_key(query, j), P,
                                      part_capacity=part_cap)
         check(not bool(ovf), f"store {tag} {j}: partition overflow")
         save_partitioned(directory, f"{tag}_{j}", pr)
@@ -1027,8 +1046,8 @@ def store_and_load(edges, part_cap: int, directory: str, tag: str,
     return prels, chain_partitioning(query, specs)
 
 
-def mapside_caps(w: Workload):
-    """``default_mapside_caps(stats, 16)``, held to the exact per-device
+def mapside_caps(w: Workload, MS_P: int = MS_P):
+    """``default_mapside_caps(stats, MS_P)``, held to the exact per-device
     loads of the runs (host numpy): the hop-1 join and its placement by
     c (and each (source, destination) placement slot), the hop-2 join,
     and the mixed run's repartition of R.  A load past its buffer sizes
@@ -2052,6 +2071,487 @@ def run_overlap_path(w: Workload, replays_3b: dict, device: torch.device
 
 
 # ---------------------------------------------------------------------------
+# Phase 3i: the ShardGrid — 8 ranks of torch.distributed on one card
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = (2, 2, 2)
+SHARD_AXES = ("pod", "data", "model")
+SHARD_LAYOUTS = {"cube": SHARD_AXES, "flat": (SHARD_AXES,),
+                 "pair": (("pod", "data"), "model")}
+SHARD_SHAPES = {"cube": (2, 2, 2), "flat": (8,), "pair": (4, 2)}
+SHARD_P = 8                    # the map-side store's partitions: (8,)
+SHARD_TOP_SCALE = 14
+# (run, layout, aggregated query (None: the triangle), strategy,
+#  join_impl, overlap_chunks, measure_skew)
+SHARD_RUNS = (
+    ("triangle 1,3J", "cube", None, "one_round", "sort_merge", 1, False),
+    ("2,3J", "flat", False, "cascade", "sort_merge", 1, False),
+    ("2,3J", "flat", False, "cascade", "sort_merge", 2, False),
+    ("2,3JA", "flat", True, "cascade_pushdown", "sort_merge", 1, False),
+    ("2,3JA", "flat", True, "cascade_pushdown", "sort_merge", 2, False),
+    ("2,3JA", "flat", True, "cascade_pushdown", "fused", 1, True),
+    ("MS,3J", "flat", False, "mapside", "sort_merge", 1, False),
+    ("1,3JA", "pair", True, "one_round_three_way_agg", "sort_merge", 1,
+     False),
+)
+# Bytes a slot of a relation buffer takes (four int32 columns, or three
+# and a float32 value, and the mask): the unit of the ranks' send and
+# receive buffers, which a SimGrid run never builds.
+SHARD_ROW_BYTES = 17
+# One CUDA context and its allocator per rank.
+SHARD_CONTEXT_BYTES = 1 << 30
+
+
+def shard_label(run) -> str:
+    name, layout, _, _, impl, chunks, measure = run
+    return (f"{name} {SHARD_SHAPES[layout]} {impl} C={chunks}"
+            f"{' measure_skew' if measure else ''}")
+
+
+def shard_edges(scale: int, seed: int):
+    from repro_torch.data.graphs import DATASETS, rmat_edges
+    spec = dataclasses.replace(DATASETS["amazon"], scale=scale)
+    return rmat_edges(spec, seed=seed), spec.n_nodes
+
+
+def shard_caps(stats, tri_stats, run):
+    """The run's caps: ``default_chain_caps`` on its grid, the
+    triangle's ``default_query_caps``, map-side ``default_mapside_caps``
+    (held to the exact loads by ``mapside_caps``)."""
+    from repro_torch.core import (JoinQuery, default_chain_caps,
+                                  default_query_caps)
+    shape = SHARD_SHAPES[run[1]]
+    if run[2] is None:
+        return default_query_caps(JoinQuery.triangle(), tri_stats, shape)
+    return default_chain_caps(stats, shape)
+
+
+def shard_inputs(run, edges, spec, device):
+    """The run's global inputs, on ``device``: grid-scattered relations,
+    or the stored partitions loaded from ``spec["store"]``."""
+    from repro_torch.checkpoint import load_partitioned
+    from repro_torch.core import (ChainQuery, JoinQuery, chain_edge_inputs,
+                                  query_table_inputs)
+    name, layout, aggregate = run[:3]
+    shape = SHARD_SHAPES[layout]
+    if aggregate is None:
+        return query_table_inputs(JoinQuery.triangle(), [edges] * 3, shape,
+                                  device=device)
+    if run[3] == "mapside":
+        return [load_partitioned(spec["store"], f"s{SHARD_P}_{j}",
+                                 device=device) for j in range(3)]
+    return chain_edge_inputs(ChainQuery.three_way(aggregate=aggregate),
+                             [edges] * 3, shape, device=device)
+
+
+def shard_execute(grid, run, rels, caps, cert):
+    from repro_torch.core import (ChainQuery, JoinQuery, execute_chain,
+                                  execute_query, one_round_three_way_agg)
+    _, _, aggregate, strategy, impl, chunks, measure = run
+    if aggregate is None:
+        return execute_query(grid, JoinQuery.triangle(), rels,
+                             strategy=strategy, caps=caps, join_impl=impl,
+                             overlap_chunks=chunks)
+    if strategy == "one_round_three_way_agg":
+        return one_round_three_way_agg(
+            grid, *rels, recv_capacity=caps.recv, mid_capacity=caps.mid,
+            join_capacity=caps.join, out_capacity=caps.out,
+            local_capacity=caps.local, join_impl=impl)
+    extra = dict(partitioning=cert, hop_modes=("mapside", "mapside"),
+                 place_output=True) if strategy == "mapside" else {}
+    return execute_chain(grid, ChainQuery.three_way(aggregate=aggregate),
+                         rels, strategy=strategy, caps=caps, join_impl=impl,
+                         overlap_chunks=chunks, measure_skew=measure,
+                         **extra)
+
+
+def digests(rel, index=()) -> dict:
+    """SHA-256 of every column's and the mask's bytes at ``index`` (a
+    device's slice of a SimGrid tensor, or a rank's whole shard): equal
+    digests are equal full arrays, padding and row order included."""
+    import hashlib
+    out = {}
+    for name, t in sorted(rel.cols.items()) + [("valid", rel.valid)]:
+        out[name] = hashlib.sha256(
+            t[index].contiguous().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def shard_rank(rank: int, spec: dict) -> list:
+    """One rank of phase 3i: every ``SHARD_RUNS`` run on this rank's
+    shards in CUDA memory; returns, on rank 0, every rank's digests,
+    stats, flags, walls, launches and audits."""
+    sys.path.insert(0, str(SRC))
+    # The audit's dispatch mode imports torch._dynamo on first use:
+    # import it here, outside the timed runs.
+    import torch._dynamo  # noqa: F401
+    import torch.distributed as dist
+    from repro_torch.analysis.op_audit import audit_collectives
+    from repro_torch.core import PartitionedRelation, ShardGrid
+    from repro_torch.distributed import make_mesh
+    from repro_torch.kernels import ops
+
+    # The ranks share the host's cores: one intra-op pool each.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // dist.get_world_size()))
+    mesh = make_mesh(SHARD_MESH, SHARD_AXES)
+    on_gpu = mesh.device.type == "cuda"
+    grids = {n: ShardGrid(mesh, a) for n, a in SHARD_LAYOUTS.items()}
+    edges, _ = shard_edges(spec["scale"], spec["seed"])
+    res = {"rank": rank, "device": str(mesh.device),
+           "coords": {n: g.coords for n, g in grids.items()}, "runs": []}
+    for i, run in enumerate(SHARD_RUNS):
+        grid, n = grids[run[1]], len(SHARD_SHAPES[run[1]])
+        blocks = []
+        for rel in shard_inputs(run, edges, spec, "cpu"):
+            stored = isinstance(rel, PartitionedRelation)
+            whole = rel.parts if stored else rel
+            block = grid.run(lambda g, b: b, whole,
+                             in_specs=(grid.axis_names,))
+            block = block.map(lambda a: a.reshape(a.shape[n:]))
+            blocks.append(PartitionedRelation(block, rel.spec) if stored
+                          else block)
+        caps = spec["caps"][i]
+        ops.reset_launches()
+        sync(mesh.device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        if run[3] == "cascade":
+            result, report = audit_collectives(
+                lambda: shard_execute(grid, run, blocks, caps, spec["cert"]),
+                max_gather_rows=caps.local, target=shard_label(run))
+            audit = (dict(report.metrics), [f.code for f in report.findings])
+        else:
+            result = shard_execute(grid, run, blocks, caps, spec["cert"])
+            audit = None
+        sync(mesh.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        out, stats, ovf = result
+        res["runs"].append(dict(
+            digests=digests(out), stats={k: v.cpu().numpy()
+                                         for k, v in stats.items()},
+            overflow=bool(ovf), wall_ms=wall_ms,
+            launches=dict(ops.LAUNCHES), audit=audit,
+            peak=(torch.cuda.max_memory_allocated() if on_gpu else 0)))
+        del result, out, stats, ovf, blocks
+        if on_gpu:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, res)
+    return everyone
+
+
+def shard_need(stats, tri_stats, per_slot: dict) -> float:
+    """Reckoned device bytes of phase 3i at these statistics: the
+    largest SimGrid reference (phase 3's bytes a slot of its strategy)
+    plus, for the ranks, the same again and each rank's K x recv send
+    and receive buffers and flattened copy (the reference's sequence,
+    which the SimGrid's scatter never builds), plus a context a rank."""
+    worst_sim, worst_rank = 0.0, 0.0
+    for run in SHARD_RUNS:
+        shape = SHARD_SHAPES[run[1]]
+        caps = shard_caps(stats, tri_stats, run)
+        key = {"one_round_three_way_agg": "one_round"}.get(run[3], run[3])
+        sim = per_slot[key] * largest_slots(caps, shape)
+        k = max(shape)
+        slot = max(v for v in dataclasses.astuple(caps) if v)
+        ranks = sim + math.prod(shape) * 3 * k * slot * SHARD_ROW_BYTES
+        worst_sim, worst_rank = max(worst_sim, sim), max(worst_rank, ranks)
+    return worst_sim + worst_rank + \
+        math.prod(SHARD_MESH) * SHARD_CONTEXT_BYTES
+
+
+def run_shardgrid(w: Workload, per_slot: dict, seed: int,
+                  device: torch.device) -> dict:
+    """Phase 3i: ``SHARD_RUNS`` on a ``ShardGrid`` over 8 ranks
+    (``spawn``; ``nccl`` with 8 cards, else ``gloo`` with every rank on
+    this card), each rank's relation, stats and flag held to the
+    SimGrid run's slice (computed first, here, kept on the host as
+    digests), the SimGrid runs to A³ / trace(A³) and the cost model;
+    then a one-rank ``nccl`` group captures ``jit_execute_chain`` of
+    2,3J on ``ShardGrid`` (1,).  Returns the launches per kernel
+    (every rank's runs, and the one-rank eager run)."""
+    from repro_torch.checkpoint import save_partitioned
+    from repro_torch.core import (ChainQuery, JoinQuery, SimGrid,
+                                  chain_partitioning, chain_stats_exact,
+                                  clear_compiled_caches, edge_relation,
+                                  partition_relation)
+    from repro_torch.core import cost_model as cm
+    from repro_torch.distributed import spawn
+    from repro_torch.kernels import ops
+
+    on_gpu = device.type == "cuda"
+    launches = {name: 0 for name in ops.LAUNCHES}
+    clear_compiled_caches()
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    def reckon(scale):
+        (src, dst), n = shard_edges(scale, seed)
+        st = (chain_stats_exact([(src, dst)] * 3),
+              triangle_stats(src, dst, n)[0])
+        return shard_need(*st, per_slot), st
+
+    scale, (stats, tri_stats) = fitting_scale(
+        "8 ranks", SHARD_TOP_SCALE, reckon, device, phase="shardgrid")
+    ws = w if scale == int(math.log2(w.n_nodes)) else make_workload(scale,
+                                                                    seed)
+    (src, dst), n_nodes = shard_edges(scale, seed)
+    a, d = ws.a3_keys // n_nodes, ws.a3_keys % n_nodes
+    trace = float(ws.a3_vals[a == d].sum())
+    n_dev = math.prod(SHARD_MESH)
+    backend = "nccl" if on_gpu and torch.cuda.device_count() >= n_dev \
+        else "gloo"
+    caps = [shard_caps(stats, tri_stats, run) for run in SHARD_RUNS]
+    ms_caps = mapside_caps(ws, SHARD_P)
+    caps[[r[3] for r in SHARD_RUNS].index("mapside")] = ms_caps
+    part_cap, how = part_capacity_for(ws.edges, SHARD_P)
+
+    with tempfile.TemporaryDirectory() as store:
+        query = ChainQuery.three_way()
+        specs = []
+        for j in range(3):
+            rel = edge_relation(src, dst, names=query.schema(j),
+                                device=device)
+            pr, ovf = partition_relation(rel, store_key(query, j), SHARD_P,
+                                         part_capacity=part_cap)
+            check(not bool(ovf), f"shardgrid store {j}: partition overflow")
+            save_partitioned(store, f"s{SHARD_P}_{j}", pr)
+            specs.append(pr.spec)
+        del rel, pr
+        cert = chain_partitioning(query, specs)
+        spec = dict(scale=scale, seed=seed, caps=caps, store=store,
+                    cert=cert)
+        log(f"shardgrid: scale {scale} (R-MAT amazon, {len(src)} edges), "
+            f"mesh {SHARD_MESH} {SHARD_AXES}, {backend} over {n_dev} ranks "
+            f"on {'8 cards' if backend == 'nccl' else device.type + ':0'}; "
+            f"store P={SHARD_P}, part_capacity {how}")
+
+        # The SimGrid references, one run at a time, kept as digests.
+        refs = []
+        for i, run in enumerate(SHARD_RUNS):
+            name, layout, aggregate, strategy = run[:4]
+            shape = SHARD_SHAPES[layout]
+            rels = shard_inputs(run, (src, dst), spec, device)
+            t0 = time.perf_counter()
+            out, stats_i, ovf = shard_execute(SimGrid(shape), run, rels,
+                                              caps[i], cert)
+            sync(device)
+            sim_ms = (time.perf_counter() - t0) * 1e3
+            del rels
+            check(not bool(ovf), f"shardgrid {shard_label(run)}: SimGrid "
+                                 f"overflow")
+            read, shuffled = float(stats_i["read"]), float(stats_i["shuffled"])
+            total = float(np.float32(read) + np.float32(shuffled))
+            rows = int(out.count().sum())
+            sizes, pj = stats.sizes, stats.prefix_joins
+            if aggregate is None:
+                check(rows == trace, f"triangle: {rows} rows != trace(A^3) "
+                                     f"{trace}")
+                want = cm.cost_query_one_round(
+                    JoinQuery.triangle().rel_dims(), sizes, n_dev,
+                    shares=shape)
+            elif strategy == "mapside":
+                hop = stats_i["hop_shuffled"].cpu().tolist()
+                check(hop == [0.0, 0.0], f"MS,3J: hop_shuffled {hop}")
+                check(float(stats_i["placed"]) == pj[0],
+                      f"MS,3J: placed {float(stats_i['placed'])} != j1")
+                want = cm.cost_chain_mapside(sizes, pj, cert,
+                                             ("mapside", "mapside"))
+                total = float(stats_i["total"])    # placed included
+            elif strategy == "one_round_three_way_agg":
+                want = cm.cost_chain_one_round_agg(sizes, n_dev, pj[-1],
+                                                   shares=shape)
+            else:
+                want = analytic(name, stats)
+            tol = float(np.spacing(np.float32(want))) if want >= 2 ** 24 \
+                else 0.0
+            check(abs(total - want) <= tol,
+                  f"shardgrid {shard_label(run)}: measured {total} != "
+                  f"analytic {want}")
+            if aggregate is not None:
+                check_against_a3(ws, out, aggregate)
+            grid_idx = np.ndindex(*shape)
+            refs.append(dict(
+                digests={c: digests(out, c) for c in grid_idx},
+                stats={k: v.cpu().numpy() for k, v in stats_i.items()},
+                rows=rows, total=total, want=want, sim_ms=sim_ms,
+                packed=(packed_rows(ws, out).cpu()
+                        if aggregate is False and strategy == "cascade"
+                        else None)))
+            del out, stats_i, ovf
+            if on_gpu:
+                torch.cuda.empty_cache()
+        for i, run in enumerate(SHARD_RUNS):
+            if run[3] == "cascade" and run[5] > 1:
+                base = next(r for r, s in zip(refs, SHARD_RUNS)
+                            if s[3] == "cascade" and s[5] == 1)
+                check(torch.equal(refs[i]["packed"], base["packed"]),
+                      f"{shard_label(run)}: tuple multiset differs from C=1")
+        for r in refs:
+            r.pop("packed")
+        if on_gpu:
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = spawn(shard_rank, n_dev, backend=backend, device=device.type,
+                      args=(spec,), timeout=600)
+        spawn_s = time.perf_counter() - t0
+
+    devices = sorted({r["device"] for r in ranks})
+    for i, run in enumerate(SHARD_RUNS):
+        ref, layout = refs[i], run[1]
+        seen = set()
+        for r in ranks:
+            got, coords = r["runs"][i], r["coords"][layout]
+            seen.add(coords)
+            check(not got["overflow"], f"{shard_label(run)} rank "
+                                       f"{r['rank']}: overflow")
+            check(got["digests"] == ref["digests"][coords],
+                  f"{shard_label(run)} rank {r['rank']} {coords}: relation "
+                  f"differs from the SimGrid slice")
+            check(sorted(got["stats"]) == sorted(ref["stats"]) and all(
+                np.array_equal(v, ref["stats"][k])
+                for k, v in got["stats"].items()),
+                f"{shard_label(run)} rank {r['rank']}: stats "
+                f"{got['stats']} != SimGrid {ref['stats']}")
+        check(len(seen) == n_dev, f"{shard_label(run)}: devices {seen}")
+        per_rank = [r["runs"][i]["launches"] for r in ranks]
+        for kname in launches:
+            launches[kname] += sum(c[kname] for c in per_rank)
+        if run[6] and on_gpu:
+            for r, c in zip(ranks, per_rank):
+                for kname in ("segment_sum", "probe_counts",
+                              "hash_histogram"):
+                    check(c[kname] > 0, f"{shard_label(run)} rank "
+                                        f"{r['rank']}: no {kname} launch")
+        audit = ""
+        if run[3] == "cascade":
+            for r in ranks:
+                metrics, codes = r["runs"][i]["audit"]
+                check(not codes, f"{shard_label(run)} rank {r['rank']}: "
+                                 f"audit findings {codes}")
+            audit = (f" audit n_all_to_all="
+                     f"{ranks[0]['runs'][i]['audit'][0]['n_all_to_all']} "
+                     f"n_collectives="
+                     f"{ranks[0]['runs'][i]['audit'][0]['n_collectives']}")
+        walls = [r["runs"][i]["wall_ms"] for r in ranks]
+        used = [{k: v for k, v in c.items() if v} for c in per_rank]
+        log(f"shardgrid {shard_label(run)} ok: {n_dev} ranks equal the "
+            f"SimGrid slices (relation, stats, overflow); rows={ref['rows']}"
+            f" total={ref['total']:.0f} analytic={ref['want']:.0f}; "
+            f"wall_ms max over ranks={max(walls):.1f} (ranks sharing one "
+            f"card, not a multi-card time; SimGrid on {device.type} "
+            f"{ref['sim_ms']:.1f}); rank peak_bytes max="
+            f"{max(r['runs'][i]['peak'] for r in ranks)}{audit}; launches "
+            f"per rank={used}")
+    overl = {r[5]: ranks[0]["runs"][i]["audit"][0]["n_all_to_all"]
+             for i, r in enumerate(SHARD_RUNS) if r[3] == "cascade"}
+    check(overl[2] > overl[1], f"shardgrid audit: overlapped cascade "
+                               f"all-to-alls {overl[2]} <= staged {overl[1]}")
+    card = card_line() if on_gpu else "no card"
+    log(f"shardgrid phase ok: backend {backend}, {n_dev} ranks on {devices},"
+        f" card {card}; every collective on the ranks' {device.type} "
+        f"tensors; spawn + runs "
+        f"{spawn_s:.1f} s; overlapped 2,3J all-to-alls {overl[2]} > staged "
+        f"{overl[1]}, no FULL_RELATION_ALL_GATHER")
+
+    for kname, c in run_nccl_capture(w, per_slot, seed, device).items():
+        launches[kname] += c
+    return launches
+
+
+def run_nccl_capture(w: Workload, per_slot: dict, seed: int,
+                     device: torch.device) -> dict:
+    """A one-rank ``nccl`` group in this process: ``jit_execute_chain``
+    of 2,3J on ``ShardGrid`` (1,) captured as a CUDA graph (its
+    collectives in the graph), the replay equal to the eager run and to
+    ``SimGrid((1,))``, at the largest scale that fits."""
+    import torch.distributed as dist
+    from repro_torch.core import (ChainQuery, ShardGrid, SimGrid,
+                                  chain_edge_inputs, chain_stats_exact,
+                                  clear_compiled_caches, default_chain_caps,
+                                  execute_chain, jit_execute_chain)
+    from repro_torch.distributed import make_mesh, set_device
+    from repro_torch.kernels import ops
+
+    def reckon(scale):
+        (src, dst), _ = shard_edges(scale, seed)
+        caps = default_chain_caps(chain_stats_exact([(src, dst)] * 3), (1,))
+        return 3 * per_slot["cascade"] * largest_slots(caps, (1,)), \
+            ((src, dst), caps)
+
+    scale, ((src, dst), caps) = fitting_scale("nccl capture",
+                                              SHARD_TOP_SCALE, reckon, device,
+                                              phase="shardgrid")
+    query = ChainQuery.three_way()
+    on_gpu = device.type == "cuda"
+    # gloo only where there is no card (a CPU rehearsal: no capture).
+    backend = "nccl" if on_gpu else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        device = set_device(device)
+        dist.init_process_group(
+            backend, init_method=f"file://{tmp}/init", rank=0, world_size=1,
+            **(dict(device_id=device) if on_gpu else {}))
+        try:
+            grid = ShardGrid(make_mesh((1,), ("x",), device=device), ("x",))
+            rels = [r.map(lambda a: a[0]) for r in chain_edge_inputs(
+                query, [(src, dst)] * 3, (1,), device=device)]
+            ops.reset_launches()
+            eager = execute_chain(grid, query, rels, strategy="cascade",
+                                  caps=caps)
+            sync(device)
+            counts = dict(ops.LAUNCHES)
+            eager = (eager[0].map(lambda t: t.cpu()),
+                     {k: v.cpu() for k, v in eager[1].items()},
+                     eager[2].cpu())
+            if on_gpu:
+                torch.cuda.empty_cache()
+            plan = jit_execute_chain(grid, query, strategy="cascade",
+                                     caps=caps, donate=False)
+            t0 = time.perf_counter()
+            first = plan(rels)
+            sync(device)
+            capture_ms = (time.perf_counter() - t0) * 1e3
+            del first
+            t0 = time.perf_counter()
+            replay = plan(rels)
+            sync(device)
+            replay_ms = (time.perf_counter() - t0) * 1e3
+            replay = (replay[0].map(lambda t: t.cpu()),
+                      {k: v.cpu() for k, v in replay[1].items()},
+                      replay[2].cpu())
+            pool = graph_pool_bytes() if on_gpu else 0
+            del plan
+            clear_compiled_caches()
+            if on_gpu:
+                torch.cuda.empty_cache()
+            sim = execute_chain(SimGrid((1,)), query, chain_edge_inputs(
+                query, [(src, dst)] * 3, (1,), device=device),
+                strategy="cascade", caps=caps)
+            sim = (sim[0].map(lambda t: t[0].cpu()),
+                   {k: v.cpu() for k, v in sim[1].items()}, sim[2].cpu())
+        finally:
+            dist.destroy_process_group()
+    check(not bool(eager[2]), "nccl capture: overflow")
+    check(same_result(replay, eager), "nccl capture: the replay differs "
+                                      "from the eager run")
+    check(same_result(eager, sim), "nccl capture: ShardGrid (1,) differs "
+                                   "from SimGrid((1,))")
+    if on_gpu:
+        torch.cuda.empty_cache()
+    how = ("captured with its collectives; replay" if on_gpu else
+           "run eagerly (no capture on the CPU); second call")
+    log(f"shardgrid {backend} capture ok: 2,3J at scale {scale} on "
+        f"ShardGrid (1,) over a one-rank {backend} group, jit_execute_chain "
+        f"{how} == eager == SimGrid((1,)); rows="
+        f"{int(eager[0].count())} capture_ms={capture_ms:.1f} "
+        f"replay_ms={replay_ms:.1f} pool_bytes={pool} launches={counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2801,6 +3301,7 @@ def main(argv=None) -> int:
                    run_store(w, per_slot, args.seed, dev),
                    run_recovery(w, args.seed, dev),
                    run_overlap_path(w, replays, dev),
+                   run_shardgrid(w, per_slot, args.seed, dev),
                    run_shares_skew(skew, dev), run_attention_entry(dev)):
         for name, c in counts.items():
             launches[name] += c

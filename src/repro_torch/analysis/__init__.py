@@ -13,7 +13,8 @@ output and the executor's lowerings:
    package's jaxpr audit) — every lowering run at a tiny size under a
    dispatch mode that walks its aten ops for key-dtype narrowing,
    float count accumulation, donation violations, and
-   ``jit_execute_*`` cache-key coverage.
+   ``jit_execute_*`` cache-key coverage; and, on a ``ShardGrid`` rank,
+   its collectives (``audit_collectives``: no full-relation gather).
 3. **Recovery metadata** (:mod:`.resilience_verifier`, a copy) — every
    non-final hop of a resilient plan has a recovery point.
 
@@ -32,8 +33,8 @@ from .plan_verifier import (COST_RTOL, GAP_WARN_FACTOR,
                             verify_query_caps, verify_query_plan,
                             verify_replication_bound)
 from .bench_targets import BenchTarget, TARGET_BUILDERS, all_bench_targets
-from .op_audit import (audit_donation, audit_jit_cache, audit_lowerings,
-                       audit_run)
+from .op_audit import (audit_collectives, audit_donation, audit_jit_cache,
+                       audit_lowerings, audit_run)
 from .resilience_verifier import verify_recovery_meta
 from .cli import main as verify_main, verify_bench_targets
 
@@ -45,6 +46,7 @@ __all__ = [
     "verify_replication_bound", "verify_chain_costs",
     "verify_chain_plan", "verify_query_plan",
     "BenchTarget", "TARGET_BUILDERS", "all_bench_targets",
-    "audit_run", "audit_donation", "audit_jit_cache", "audit_lowerings",
+    "audit_run", "audit_collectives", "audit_donation", "audit_jit_cache",
+    "audit_lowerings",
     "verify_recovery_meta", "verify_main", "verify_bench_targets",
 ]

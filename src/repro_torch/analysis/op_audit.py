@@ -27,17 +27,19 @@ named ``ops/<lowering>``):
   ``jit_execute_chain(donate=True)`` sharing storage with an input.
 * **Cache key coverage** (``CACHE_KEY_MISS`` / ``CACHE_KEY_COLLISION``):
   :func:`audit_jit_cache`, the reference's variants.
+* **Collectives** (``FULL_RELATION_ALL_GATHER``):
+  :func:`audit_collectives`, over a run on a
+  :class:`~repro_torch.core.ShardGrid` rank — the c10d ops it really
+  runs, with ``n_collectives`` and ``n_all_to_all`` in its metrics.
 
 The reference's ``WEAK_TYPE_INPUT`` has no torch counterpart (a tensor
-has no weak type), and its collectives check
-(``FULL_RELATION_ALL_GATHER``) needs a ``torch.distributed`` grid
-(ROADMAP A12).
+has no weak type).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -220,6 +222,85 @@ def audit_donation(outputs: Any, donated: Any, target: str,
                 "caller would read memory the executable may reuse — "
                 "copy the tensor")
     return report
+
+
+# ---------------------------------------------------------------------------
+# Collectives of a ShardGrid lowering
+# ---------------------------------------------------------------------------
+
+#: The c10d ops a ShardGrid runs (as the dispatcher names them) ->
+#: (the reference's primitive name, the position of the operand sent).
+_C10D = {"alltoall_base_": ("all_to_all", 1),
+         "_allgather_base_": ("all_gather", 1),
+         "allreduce_": ("psum", 0)}
+
+
+class _CollectiveLog(TorchDispatchMode):
+    """Records every c10d collective that reaches the dispatcher: its
+    reference name and the shapes of the operand it sends."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: List[Dict[str, Any]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if func.namespace == "c10d" and name in _C10D:
+            prim, at = _C10D[name]
+            operand = args[at] if len(args) > at else ()
+            shapes = [tuple(t.shape) for t in pytree.tree_leaves(operand)
+                      if isinstance(t, torch.Tensor)]
+            self.calls.append({
+                "prim": prim, "op": name, "operand_shapes": shapes,
+                "operand_rows": int(max((s[-1] for s in shapes if s),
+                                        default=0))})
+        return func(*args, **(kwargs or {}))
+
+
+def collect_collectives(fn: Callable[[], Any]) -> Tuple[Any, List[Dict]]:
+    """Run ``fn()`` on this rank and return ``(its result, the c10d
+    collectives it ran)``, each ``{"prim", "op", "operand_shapes",
+    "operand_rows"}`` — rows are the sent operand's trailing axis, the
+    per-device row count the collective moves, as in the reference."""
+    log = _CollectiveLog()
+    with log:
+        result = fn()
+    return result, log.calls
+
+
+def audit_collectives(fn: Callable[[], Any], *, max_gather_rows: int,
+                      target: str) -> Tuple[Any, VerifierReport]:
+    """Flag ``all_gather``s that replicate a full relation.
+
+    ``fn`` runs a lowering on this rank of a
+    :class:`~repro_torch.core.ShardGrid` (every rank must run it: it
+    communicates).  JAX audits a traced program; the port has no
+    tracer, so it audits what runs: every c10d op reaches the
+    dispatcher (``c10d::alltoall_base_``, ``_allgather_base_``,
+    and ``allreduce_``) and a dispatch mode records it.
+    ``max_gather_rows`` is the capacity threshold: gathers of scalars
+    and small control values pass; a gather whose operand carries at
+    least this many rows is a relation being replicated to every
+    device — the pattern the chunked all-to-all schedule exists to
+    avoid.  Metrics: ``n_collectives`` (every collective run) and
+    ``n_all_to_all`` (one a column of every shuffle hop).  Returns
+    ``(fn(), report)``, as :func:`audit_run` does."""
+    report = VerifierReport(target=target)
+    result, colls = collect_collectives(fn)
+    report.metrics["n_collectives"] = len(colls)
+    report.metrics["n_all_to_all"] = sum(
+        1 for c in colls if c["prim"] == "all_to_all")
+    for c in colls:
+        if c["prim"] == "all_gather" and c["operand_rows"] >= max_gather_rows:
+            report.add(
+                "FULL_RELATION_ALL_GATHER", ERROR,
+                f"{target}: all_gather{c['operand_shapes']}",
+                f"an all_gather moves {c['operand_rows']} rows (>= the "
+                f"relation capacity {max_gather_rows}): the shuffle is "
+                f"replicating a full relation to every device instead of "
+                f"routing per-chunk all_to_alls — k× the communication "
+                f"the overlapped schedule accounts for")
+    return result, report
 
 
 # ---------------------------------------------------------------------------

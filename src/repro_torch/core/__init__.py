@@ -5,6 +5,7 @@ Public API of this slice, by layer:
   Data model / grid
     Relation, concat, flatten_leading   — static-capacity columnar relation
     Grid, SimGrid                       — the simulated reducer grid
+    ShardGrid                           — the grid of torch.distributed ranks
     broadcast_along, shuffle_by_bucket  — the shuffle layer
     split_rows, concat_rows             — the overlapped schedule's row blocks
 
@@ -55,8 +56,8 @@ Public API of this slice, by layer:
 """
 
 from .relation import Relation, concat, flatten_leading
-from .shuffle import (Grid, SimGrid, broadcast_along, concat_rows,
-                      shuffle_by_bucket, split_rows)
+from .shuffle import (Grid, ShardGrid, SimGrid, broadcast_along,
+                      concat_rows, shuffle_by_bucket, split_rows)
 from .plan import ChainAggregate, ChainQuery, JoinQuery, QueryAggregate
 from .two_way import two_way_join
 from .executor import (ChainCaps, CompiledPlan, cascade_chain, cascade_query,
@@ -107,7 +108,7 @@ from .matmul import (a_cubed, edge_relation, oracle_a3, oracle_triangles,
 
 __all__ = [
     "Relation", "concat", "flatten_leading",
-    "Grid", "SimGrid", "broadcast_along", "shuffle_by_bucket",
+    "Grid", "ShardGrid", "SimGrid", "broadcast_along", "shuffle_by_bucket",
     "split_rows", "concat_rows",
     "JoinQuery", "QueryAggregate", "ChainQuery", "ChainAggregate",
     "ChainCaps", "CompiledPlan", "execute_chain", "execute_query",

@@ -51,7 +51,7 @@ from .local import groupby_sum, local_join
 from .partition import PartitionedRelation
 from .plan import ChainQuery, JoinQuery
 from .relation import Relation, concat
-from .shuffle import (Grid, SimGrid, broadcast_along, compact_to,
+from .shuffle import (Grid, ShardGrid, SimGrid, broadcast_along, compact_to,
                       concat_rows, shuffle_by_bucket, split_rows)
 from .two_way import two_way_join
 
@@ -1098,7 +1098,10 @@ class CompiledPlan:
     replays, and returns clones of the outputs, so a result stays valid
     after the next replay.  A capture or replay error raises: there is
     no eager fallback.  On the CPU (a caller that asked for it) a call
-    is the eager ``execute_*`` call.  ``grid``, ``query``, ``strategy``,
+    is the eager ``execute_*`` call.  On a :class:`ShardGrid` every rank
+    calls it: the capture takes the plan's ``nccl`` collectives into the
+    graph; a grid over another backend raises a ``ValueError`` on CUDA
+    tensors.  ``grid``, ``query``, ``strategy``,
     ``caps``, ``opts`` and ``donate`` are the plan it was compiled for.
     """
 
@@ -1122,6 +1125,13 @@ class CompiledPlan:
         try:
             if not _relation(rels[0]).valid.is_cuda:
                 return self._execute(rels)
+            if (isinstance(self.grid, ShardGrid)
+                    and self.grid.backend != "nccl"):
+                raise ValueError(
+                    f"a plan on a ShardGrid over the {self.grid.backend!r} "
+                    f"backend cannot be captured into a CUDA graph with "
+                    f"CUDA tensors (only nccl collectives capture); run "
+                    f"execute_chain / execute_query eagerly on it")
             sig = input_signature(rels)
             graph = self._graphs.get(sig)
             if graph is None:
@@ -1159,8 +1169,8 @@ def _compiled_sim(grid_shape: Tuple[int, ...], lanes: int, query: JoinQuery,
 def _compiled_grid(grid: Grid, query: JoinQuery, strategy: str,
                    caps: ChainCaps, opts: Tuple, donate: bool,
                    chain: bool) -> CompiledPlan:
-    # Other grids hash by identity: the cache holds per-instance
-    # programs (one long-lived grid object).
+    # A ShardGrid hashes by identity: the cache holds per-instance
+    # programs (one long-lived grid object per rank).
     return CompiledPlan(grid, query, strategy, caps, opts, donate, chain)
 
 

@@ -26,6 +26,8 @@ import repro_torch.core as T  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import cost_model as cm  # noqa: E402
 
+from _torch_jax import run_fast  # noqa: E402
+
 GRID = (2, 2)
 K = 4
 
@@ -73,8 +75,7 @@ def test_stats_plans_and_caps_match_jax():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_reference(aggregate, strategy, local_combine=False,
-                  overlap_chunks=1):
+def jax_reference(aggregate, strategy, local_combine=False):
     """The JAX package's ``(cols, valid, stats, overflow)`` as numpy.
 
     Run jitted (the JAX package's own tests hold it equal to the eager
@@ -87,9 +88,8 @@ def jax_reference(aggregate, strategy, local_combine=False,
     run = jit_execute_chain(J.SimGrid(GRID), jq, strategy=strategy,
                             caps=J.ChainCaps(**dataclasses.asdict(CAPS)),
                             donate=False, join_impl="sort_merge",
-                            local_combine=local_combine,
-                            overlap_chunks=overlap_chunks)
-    out, stats, ovf = run(J.chain_edge_inputs(jq, EDGES, GRID))
+                            local_combine=local_combine)
+    out, stats, ovf = run_fast(run, J.chain_edge_inputs(jq, EDGES, GRID))
     return ({n: np.asarray(c) for n, c in out.cols.items()},
             np.asarray(out.valid), {k: float(v) for k, v in stats.items()},
             bool(ovf))
@@ -200,7 +200,8 @@ def test_execute_query_triangle_matches_jax(strategy, grid):
     assert dataclasses.asdict(caps) == dataclasses.asdict(j_caps)
     run = jit_execute_query(J.SimGrid(grid), jq, strategy=strategy,
                             caps=j_caps, donate=False)
-    j_out, j_stats, j_ovf = run(J.query_table_inputs(jq, tables, grid))
+    j_out, j_stats, j_ovf = run_fast(run, J.query_table_inputs(jq, tables,
+                                                             grid))
     out, st, ovf = T.execute_query(
         T.SimGrid(grid), tq,
         T.query_table_inputs(tq, tables, grid, device="cpu"),
@@ -220,15 +221,16 @@ def test_execute_query_triangle_matches_jax(strategy, grid):
     dict(measure_skew=True), dict(overlap_chunks=2),
     dict(strategy="mapside"), dict(strategy="shares_skew")],
     ids=["measure_skew", "overlap_chunks", "mapside", "shares_skew"])
-def test_later_slices_raise_not_implemented(option):
-    """Options of later slices once raised ``NotImplementedError``; all
-    four are ported now: ``measure_skew`` runs and adds
-    ``max_bucket_load``, ``overlap_chunks=2`` runs the overlapped
-    schedule equal to the JAX package's overlapped run as full arrays,
-    ``shares_skew`` raises the reference's ``ValueError`` pointing to
-    its own entry point, ``shares_skew_chain``, and ``mapside`` without
-    a certificate raises the reference's ``ValueError`` asking for
-    one."""
+def test_each_option_runs_or_raises_the_reference_error(option):
+    """Options that once raised ``NotImplementedError`` in the port:
+    ``measure_skew`` runs and adds ``max_bucket_load``;
+    ``overlap_chunks=2`` runs the overlapped schedule, with the staged
+    run's stats, overflow flag and tuples (its full arrays are held to
+    the JAX package's overlapped 2,3J cascade in
+    ``tests/test_torch_overlap_chain.py``); ``shares_skew`` raises the
+    reference's ``ValueError`` pointing to its own entry point,
+    ``shares_skew_chain``; and ``mapside`` without a certificate raises
+    the reference's ``ValueError`` asking for one."""
     q = T.ChainQuery.three_way()
     rels = T.chain_edge_inputs(q, EDGES, GRID, device="cpu")
     kw = dict(strategy="cascade", caps=CAPS)
@@ -244,10 +246,14 @@ def test_later_slices_raise_not_implemented(option):
         with pytest.raises(ValueError, match="partitioning and hop_modes"):
             T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
     else:
-        got = T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
-        assert_matches_reference(got, jax_reference(False, "cascade",
-                                                    overlap_chunks=2))
-        assert result_total(got[0], False) == STATS.prefix_joins[-1]
+        out, stats, ovf = T.execute_chain(T.SimGrid(GRID), q, rels, **kw)
+        s_out, s_stats, s_ovf = T.execute_chain(
+            T.SimGrid(GRID), q, rels, strategy="cascade", caps=CAPS)
+        assert not bool(ovf) and not bool(s_ovf)
+        assert {k: float(v) for k, v in stats.items()} == \
+            {k: float(v) for k, v in s_stats.items()}
+        assert out.to_tuple_set() == s_out.to_tuple_set()
+        assert result_total(out, False) == STATS.prefix_joins[-1]
 
 
 def test_unknown_strategy_and_missing_aggregate_raise():

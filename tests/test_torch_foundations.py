@@ -112,15 +112,19 @@ jl = JRel.from_arrays(16, b=jnp.asarray(lk), v=jnp.asarray(lv))
 jr = JRel.from_arrays(6, b=jnp.asarray(rk), w=jnp.asarray(rv))
 tl = TRel.from_arrays(16, b=torch.as_tensor(lk), v=torch.as_tensor(lv))
 tr = TRel.from_arrays(6, b=torch.as_tensor(rk), w=torch.as_tensor(rv))
-# The reference jitted: one compile instead of one per op.
-jo, jf = jax.jit(lambda l, r: j_smj(l, r, "b", "b", 32))(jl, jr)
+# The reference jitted: one compile instead of one per op, without
+# XLA's backend optimizations (the outputs are gathers and integer sums).
+from _torch_jax import XLA_FAST
+jo, jf = jax.jit(lambda l, r: j_smj(l, r, "b", "b", 32),
+                 compiler_options=XLA_FAST)(jl, jr)
 to, tf = t_smj(tl, tr, "b", "b", 32)
 assert bool(jf) == bool(tf)
 assert (np.asarray(jo.valid) == to.valid.numpy()).all()
 for n in jo.cols:
     assert to.cols[n].numpy().dtype == np.asarray(jo.cols[n]).dtype, n
     assert (to.cols[n].numpy() == np.asarray(jo.cols[n])).all(), n
-jg, jgf = jax.jit(lambda r: j_groupby(r, ("b",), "w", 8))(jo)
+jg, jgf = jax.jit(lambda r: j_groupby(r, ("b",), "w", 8),
+                  compiler_options=XLA_FAST)(jo)
 tg, tgf = t_groupby(to, ("b",), "w", 8)
 assert bool(jgf) == bool(tgf)
 for n in jg.cols:
@@ -134,7 +138,8 @@ def test_int64_keys_match_jax_under_x64():
     bit, join and group equal to the JAX package with x64 on."""
     env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+                   [str(ROOT / "src"), str(ROOT / "tests"),
+                    os.environ.get("PYTHONPATH", "")]))
     res = subprocess.run([sys.executable, "-c", _X64_CHECK], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

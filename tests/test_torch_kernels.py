@@ -132,8 +132,11 @@ def test_probe_counts_plain_matches_pallas(J, nq, nr, n_valid_r):
 
 def test_stable_key_order_and_partition_order_match_jax(J):
     import jax
-    stable_key_order = jax.jit(J.fj.stable_key_order)
-    partition_order = jax.jit(J.fj.partition_order, static_argnums=1)
+    from _torch_jax import XLA_FAST
+    stable_key_order = jax.jit(J.fj.stable_key_order,
+                               compiler_options=XLA_FAST)
+    partition_order = jax.jit(J.fj.partition_order, static_argnums=1,
+                              compiler_options=XLA_FAST)
     rng = np.random.default_rng(0)
     for n, n_keys in ((1, 1), (7, 3), (64, 5), (257, 11)):
         key = rng.integers(0, n_keys, n).astype(np.int32)

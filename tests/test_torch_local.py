@@ -25,6 +25,8 @@ from repro.core.relation import Relation as JRel  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import local as tl  # noqa: E402
 
+from _torch_jax import XLA_FAST  # noqa: E402
+
 I32_MAX = np.iinfo(np.int32).max
 
 # The reference runs jitted (one compile per shape, several times faster
@@ -68,11 +70,14 @@ def side(rng, n, cap, domain, key="b", val="v", p_valid=1.0, lead=()):
     return {key: keys, val: vals}, valid
 
 
-JOINS = {"sort_merge": (jax.jit(jl.sort_merge_join, **_JOIN_STATIC),
+JOINS = {"sort_merge": (jax.jit(jl.sort_merge_join, **_JOIN_STATIC,
+                                compiler_options=XLA_FAST),
                         tl.sort_merge_join),
-         "fused": (jax.jit(jl.fused_sort_merge_join, **_JOIN_STATIC),
+         "fused": (jax.jit(jl.fused_sort_merge_join, **_JOIN_STATIC,
+                           compiler_options=XLA_FAST),
                    tl.fused_sort_merge_join),
-         "all_pairs": (jax.jit(jl.local_join_allpairs, **_JOIN_STATIC),
+         "all_pairs": (jax.jit(jl.local_join_allpairs, **_JOIN_STATIC,
+                               compiler_options=XLA_FAST),
                        tl.local_join_allpairs)}
 
 
@@ -144,7 +149,8 @@ def test_join_presorted_and_prefixes(impl):
     right = side(rng, 10, 10, 5, val="v")      # name collision: prefixes
     jlft, tlft = both(*left)
     jrgt, trgt = both(*right)
-    sort_rows = jax.jit(jl.sort_rows, static_argnums=1)
+    sort_rows = jax.jit(jl.sort_rows, static_argnums=1,
+                        compiler_options=XLA_FAST)
     js_l, ts_l = sort_rows(jlft, "b"), tl.sort_rows(tlft, "b")
     js_r, ts_r = sort_rows(jrgt, "b"), tl.sort_rows(trgt, "b")
     assert_same(js_l, ts_l)
@@ -173,8 +179,11 @@ def test_join_batched_equals_vmapped_reference(impl):
     left = side(rng, 30, 34, 6, lead=(2, 3), p_valid=0.8)
     right = side(rng, 25, 25, 6, val="w", lead=(2, 3), p_valid=0.8)
     (jlft, tlft), (jrgt, trgt) = both(*left), both(*right)
-    jfn, tfn = JOINS[impl]
-    f = jax.jit(jax.vmap(jax.vmap(lambda a, b: jfn(a, b, "b", "b", 40))))
+    _, tfn = JOINS[impl]
+    jfn = {"sort_merge": jl.sort_merge_join,
+           "fused": jl.fused_sort_merge_join}[impl]
+    f = jax.jit(jax.vmap(jax.vmap(lambda a, b: jfn(a, b, "b", "b", 40))),
+                compiler_options=XLA_FAST)
     jo, jf = f(jlft, jrgt)
     to, tf = tfn(tlft, trgt, "b", "b", 40)
     assert_same(jo, to)
@@ -188,7 +197,8 @@ def test_join_batched_equals_vmapped_reference(impl):
 
 def test_partition_ranks_matches_jax():
     rng = np.random.default_rng(3)
-    partition_ranks = jax.jit(jl.partition_ranks, static_argnums=2)
+    partition_ranks = jax.jit(jl.partition_ranks, static_argnums=2,
+                              compiler_options=XLA_FAST)
     for n, k in ((1, 1), (64, 8), (200, 13)):
         bucket = rng.integers(0, k, n).astype(np.int32)
         valid = rng.random(n) < 0.7
@@ -203,7 +213,8 @@ def test_partition_ranks_matches_jax():
 def test_compact_matches_jax(cap_out):
     rng = np.random.default_rng(8)
     jr, tr = both(*side(rng, 20, 24, 9, p_valid=0.5))
-    compact = jax.jit(lambda r: r.compact(cap_out))
+    compact = jax.jit(lambda r: r.compact(cap_out),
+                      compiler_options=XLA_FAST)
     assert_same(compact(jr), tr.compact(cap_out))
 
 

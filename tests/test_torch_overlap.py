@@ -39,11 +39,9 @@ from repro_torch.core.cost_model import (hop_time_overlapped,  # noqa: E402
                                          overlap_hidden_fraction)
 from repro_torch.core.shuffle import concat_rows, split_rows  # noqa: E402
 
+from _torch_jax import run_fast  # noqa: E402
+
 CHUNK_COUNTS = (2, 3, 5)
-# The JAX references are small and run once; their integer results do
-# not depend on XLA's backend optimizations, which cost seconds.
-XLA_FAST = {"xla_backend_optimization_level": 0,
-            "xla_llvm_disable_expensive_passes": True}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -78,7 +76,7 @@ def jax_core():
 def jax_run(fn, *args):
     """``fn(*args)`` jitted, compiled without the expensive passes."""
     import jax
-    return jax.jit(fn).lower(*args).compile(compiler_options=XLA_FAST)(*args)
+    return run_fast(jax.jit(fn), *args)
 
 
 def assert_same_result(got, want):

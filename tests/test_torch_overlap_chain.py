@@ -3,8 +3,9 @@ JAX package, on the CPU.
 
 ``execute_chain`` for 1,3JA (the one-round plan streaming its last
 relation into the raw join at ``caps.join``, then the charged
-aggregation round) and 2,3JA (every cascade round chunked, the
-pushdown between them), both with ``measure_skew=True``; the map-side
+aggregation round), 2,3JA (every cascade round chunked, the pushdown
+between them) and 2,3J (the unaggregated cascade), all with
+``measure_skew=True``; the map-side
 cascade whose second hop shuffles (``mapside_cascade_chain`` chunks
 its shuffled hops only); ``shares_skew_chain`` (each combination's
 one-round sub-join chunked); and 64-bit keys above 2^32 in an x64
@@ -50,15 +51,16 @@ def quickstart_edges():
 
 EDGES = quickstart_edges()
 STATS = T.chain_stats_exact(EDGES, sketch_top_k=16)
-# (paper name, strategy, grid), both aggregated and measured; the
-# cascade on a 1-D grid (one shuffle hop a side, half the JAX program).
-CHAIN_RUNS = [("1,3JA", "one_round", (2, 2)),
-              ("2,3JA", "cascade_pushdown", (4,))]
+# (paper name, strategy, grid, aggregate), all measured; the cascades
+# on a 1-D grid (one shuffle hop a side, half the JAX program).
+CHAIN_RUNS = [("1,3JA", "one_round", (2, 2), True),
+              ("2,3JA", "cascade_pushdown", (4,), True),
+              ("2,3J", "cascade", (4,), False)]
 
 
 @functools.lru_cache(maxsize=None)
-def jax_chain(strategy, grid):
-    jq = J.ChainQuery.three_way(aggregate=True)
+def jax_chain(strategy, grid, aggregate):
+    jq = J.ChainQuery.three_way(aggregate=aggregate)
     caps = J.ChainCaps(**dataclasses.asdict(T.default_chain_caps(STATS,
                                                                  grid)))
     rels = J.chain_edge_inputs(jq, EDGES, grid)
@@ -68,18 +70,20 @@ def jax_chain(strategy, grid):
 
 
 @pytest.mark.parametrize("chunks", CHUNK_COUNTS)
-@pytest.mark.parametrize("name,strategy,grid", CHAIN_RUNS,
+@pytest.mark.parametrize("name,strategy,grid,aggregate", CHAIN_RUNS,
                          ids=[r[0] for r in CHAIN_RUNS])
-def test_execute_chain_overlap_matches_jax(name, strategy, grid, chunks):
-    q = T.ChainQuery.three_way(aggregate=True)
+def test_execute_chain_overlap_matches_jax(name, strategy, grid, aggregate,
+                                           chunks):
+    q = T.ChainQuery.three_way(aggregate=aggregate)
     rels = T.chain_edge_inputs(q, EDGES, grid, device="cpu")
     got = T.execute_chain(T.SimGrid(grid), q, rels, strategy=strategy,
                           caps=T.default_chain_caps(STATS, grid),
                           measure_skew=True, overlap_chunks=chunks)
-    assert_same_result(got, jax_chain(strategy, grid)[chunks])
+    assert_same_result(got, jax_chain(strategy, grid, aggregate)[chunks])
     assert not bool(got[2])
-    assert float(got[0].cols["p"][got[0].valid].sum()) == \
-        STATS.prefix_joins[-1]
+    total = (float(got[0].cols["p"][got[0].valid].sum()) if aggregate
+             else int(got[0].count().sum()))
+    assert total == STATS.prefix_joins[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -187,12 +191,11 @@ assert jcfg.enable_x64() and jcfg.x64_enabled() and tcfg.x64_enabled()
 import jax
 import repro.core as J
 import repro_torch.core as T
+from _torch_jax import run_fast
 torch.set_num_threads(1)
-OPTS = {"xla_backend_optimization_level": 0,
-        "xla_llvm_disable_expensive_passes": True}
 
 def run(fn, *args):
-    return jax.jit(fn).lower(*args).compile(compiler_options=OPTS)(*args)
+    return run_fast(jax.jit(fn), *args)
 
 def same(got, want):
     out, st, ovf = got
@@ -245,7 +248,8 @@ print("OK")
 def test_overlap_int64_keys_match_jax_under_x64():
     env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+                   [str(ROOT / "src"), str(ROOT / "tests"),
+                    os.environ.get("PYTHONPATH", "")]))
     res = subprocess.run([sys.executable, "-c", _X64_CHECK], env=env,
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=600)

@@ -47,18 +47,23 @@ import repro_torch.checkpoint as TC  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch import interop  # noqa: E402
 
+from _torch_jax import XLA_FAST  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 P = 4
 
 # The JAX side jitted: its eager ops compile one by one for every shape.
 j_partition_relation = jax.jit(
     J.partition_relation,
-    static_argnames=("key", "num_partitions", "salt", "part_capacity"))
+    static_argnames=("key", "num_partitions", "salt", "part_capacity"),
+    compiler_options=XLA_FAST)
 j_repartition = jax.jit(
     J.repartition,
-    static_argnames=("salt", "key", "num_partitions", "part_capacity"))
+    static_argnames=("salt", "key", "num_partitions", "part_capacity"),
+    compiler_options=XLA_FAST)
 j_send_buffers = jax.jit(jax.vmap(j_local.partition, in_axes=(0, 0, None, None)),
-                         static_argnums=(2, 3))
+                         static_argnums=(2, 3),
+                         compiler_options=XLA_FAST)
 
 
 def edges(seed, m, dom, n=3):
@@ -423,7 +428,7 @@ def jax_final_aggregation(jq, caps):
             recv_capacity=caps.out, out_capacity=caps.out,
             local_capacity=caps.out)
 
-    return jax.jit(final)
+    return jax.jit(final, compiler_options=XLA_FAST)
 
 
 @functools.lru_cache(maxsize=None)
@@ -449,7 +454,8 @@ def jax_run(name):
     run = J.jit_execute_chain(
         J.SimGrid((P,)), jq, strategy="mapside", caps=j_caps, donate=False,
         **{**opts, "partitioning": j_part})
-    return run(tuple(j_rels))
+    rels = tuple(j_rels)
+    return run.lower(rels).compile(compiler_options=XLA_FAST)(rels)
 
 
 def jax_reference(name):

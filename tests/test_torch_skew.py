@@ -36,6 +36,8 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.kernels import hash_partition as thp  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
+from _torch_jax import XLA_FAST, run_fast  # noqa: E402
+
 K = 16
 CAPS = dict(recv=128, mid=2048, out=2048, local=256, agg=1024, join=2048)
 JOINS = ["sort_merge", "fused"]
@@ -60,24 +62,17 @@ def combo_caps(pkg, grid_shape):
     big = dict(CAPS, out=8192, join=8192) if grid_shape == (1, 1) else CAPS
     return pkg.ChainCaps(**big)
 
-# The JAX oracles, jitted: one compile per shape instead of one per op.
+# The JAX oracles, jitted: one compile per shape instead of one per op,
+# without XLA's backend optimizations (integer results).
 masked_hash_histogram = jax.jit(jref.masked_hash_histogram,
-                                static_argnames=("n_buckets", "salt", "block"))
+                                static_argnames=("n_buckets", "salt", "block"),
+                                compiler_options=XLA_FAST)
 jax_bucket_counts = jax.jit(
     lambda keys, valid, n_buckets, salt: jhp.bucket_counts(
         keys, valid, n_buckets, salt=salt, use_pallas=False),
-    static_argnums=(2, 3))
-jax_partition_offsets = jax.jit(jhp.partition_offsets)
-
-
-def run_compiled(jitted, *args):
-    """Run a jitted JAX reference compiled without XLA's backend
-    optimizations: the references are small and run once, and their
-    integer-valued results do not depend on it, while the optimizing
-    compile costs seconds per program."""
-    return jitted.lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0,
-                          "xla_llvm_disable_expensive_passes": True})(*args)
+    static_argnums=(2, 3), compiler_options=XLA_FAST)
+jax_partition_offsets = jax.jit(jhp.partition_offsets,
+                                compiler_options=XLA_FAST)
 
 
 def hot_edges(rng, n_nodes=40, n_edges=72, hot=0.4):
@@ -288,7 +283,7 @@ def measured_refs():
             J.SimGrid(GRID), jq, strategy=strategy,
             caps=J.ChainCaps(**dataclasses.asdict(SKEW_CAPS)), donate=False,
             measure_skew=True)
-        refs[strategy] = run_compiled(run, J.chain_edge_inputs(jq, HOT, GRID))
+        refs[strategy] = run_fast(run, J.chain_edge_inputs(jq, HOT, GRID))
     return refs
 
 
@@ -323,17 +318,18 @@ def flat_inputs(pkg, query, edges, **kw):
 
 @pytest.fixture(scope="module")
 def skew_refs():
-    """The JAX package's ``shares_skew_chain`` with ``measure_skew``,
-    jitted with the plan closed over, once per query kind."""
-    refs = {}
-    for aggregate in (False, True):
-        jq = J.ChainQuery.three_way(aggregate=aggregate)
-        plan = J.detect_chain_skew(jq, HOT, K)
-        run = jax.jit(lambda *r, _q=jq, _p=plan: J.shares_skew_chain(
-            _q, list(r), _p, caps=lambda c: combo_caps(J, c.grid_shape),
-            measure_skew=True))
-        refs[aggregate] = run_compiled(run, *flat_inputs(J, jq, HOT))
-    return refs
+    """The JAX package's ``shares_skew_chain`` with ``measure_skew`` for
+    both query kinds, one jitted program with the plans closed over:
+    the kinds read the same relations, and XLA compiles what they share
+    once."""
+    kinds = {a: J.ChainQuery.three_way(aggregate=a) for a in (False, True)}
+    assert [kinds[False].schema(j) for j in range(3)] == \
+        [kinds[True].schema(j) for j in range(3)]
+    plans = {a: J.detect_chain_skew(q, HOT, K) for a, q in kinds.items()}
+    run = jax.jit(lambda *r: {a: J.shares_skew_chain(
+        q, list(r), plans[a], caps=lambda c: combo_caps(J, c.grid_shape),
+        measure_skew=True) for a, q in kinds.items()})
+    return run_fast(run, *flat_inputs(J, kinds[False], HOT))
 
 
 @pytest.mark.parametrize("join_impl", JOINS)

@@ -303,9 +303,9 @@ def test_triangle_count_chain_filter_agrees_with_the_cycle_query():
 
 
 def test_core_exports_the_reference_api():
-    """Everything the JAX package's ``core`` exports, but ``ShardGrid``
-    (the ``torch.distributed`` grid, a later slice)."""
-    assert set(J.__all__) - set(T.__all__) == {"ShardGrid"}
+    """Everything the JAX package's ``core`` exports, ``ShardGrid`` (the
+    ``torch.distributed`` grid) included."""
+    assert set(J.__all__) - set(T.__all__) == set()
     for name in T.__all__:
         assert getattr(T, name) is not None
 
