@@ -35,8 +35,8 @@ Phases, each failing the run on any error:
    128) over 4,096 positions: bfloat16 prefill, a ragged chunk (1,000
    queries after 2,000 cached keys) and head dim 64 on the tensor
    cores, decode in bfloat16 and float32 split over the kv axis, and
-   float32 prefill on the CUDA cores; each case logs the path
-   ``_plan`` chose.
+   float32 prefill on the CUDA cores; each case logs the path ``_plan``
+   chose.  Phase 3j adds two cases at the model's shapes.
 3. The main path at full size: R-MAT ``amazon`` at ``--scale`` (edge
    factor 3, a = 0.50), planned with ``chain_stats_exact`` and
    ``plan_chain(k=16)``, sized by ``default_chain_caps``, and run by
@@ -114,7 +114,32 @@ Phases, each failing the run on any error:
    equal to the plan's cost.
 5. The attention entry point ``flash_attention.flash_attention`` once for prefill
    and once for decode (bfloat16), its launches counted.
-6. One JSON line with every kernel's numbers, the card line, and last
+3j. LM serving, last, after phase 5 and ``--profile``'s pass (phase
+   3's graph pools are returned by then): phase 2's attention cases
+   at the model's shapes (32 padded query heads: request 1's 4 x 1,024
+   prefill, a decode step over 1,088 keys), then qwen2-7b at full
+   width and depth (28 layers, d_model 3,584, 32 padded query heads /
+   4 kv heads, head dim 128, d_ff 18,944, vocab 152,064; 7,718,391,296
+   parameters) drawn in bf16 on the card from ``--seed``, two greedy
+   requests through ``repro_torch.serving.Engine`` (``LM_REQUESTS``:
+   4 x 1,024 prompt tokens + 64 new, 1 x 4,096 + 32 new), the counts
+   set to 0 before each and read after (``flash_attention`` once a
+   layer a step).  Each checks tokens in range, finite logits and the
+   reference's stats, and logs prefill ms, the median decode-step ms,
+   tokens/s and ``_plan``'s paths beside the bounds (a decode step
+   reads every weight and the cache; the prefill's operations at 989
+   TFLOP/s).  Then every attention call of request 1's prefill and
+   first decode step against the plain version on the same inputs
+   (phase 2's ``assert_close``, rtol = atol = 2e-2), the whole prefill
+   against a ``backend="ref"`` model sharing the weights (max abs logit
+   difference, top-1 agreement: logged, no bound), the phase's peak
+   bytes, and one decode step's device ms and largest kernels; it
+   frees all it made.  It runs last because, run before phase 3 (even
+   in a process of its own, without the profiler), its GEMMs left the
+   profiler dropping kernel records from phase 3b's traces (ROADMAP
+   C9).
+6. One JSON line with every kernel's numbers (``flash_attention``'s
+   launches include phase 3j's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -122,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -146,6 +172,8 @@ K = 16
 # qwen2-7b's attention (src/repro/configs/qwen2_7b.py): 28 query heads,
 # 4 kv heads, head dim 128; prefill and decode over 4,096 positions.
 ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_LEN = 28, 4, 128, 4096
+# The model's query heads: 28 padded to 32 (ModelConfig.padded_heads).
+LM_HEADS = 32
 # A ragged chunked prefill: 1,000 new queries after 2,000 cached keys.
 ATTN_CHUNK, ATTN_CHUNK_KV = 1000, 3000
 # The skew workload: Zipf(1.0) endpoints, the same list for all three
@@ -232,11 +260,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time of the kernels one ``fn()`` launches: their summed
-    time over ``iters`` calls under ``torch.profiler``, per call.  Where
-    it is well below ``time_ms``, the host's launches, not the card, set
-    the time."""
+def device_kernels(fn, iters: int) -> list:
+    """``(name, device ms a call, records)`` of each device function
+    that ``fn()`` runs, over ``iters`` calls under ``torch.profiler``
+    (after one call outside it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,11 +274,18 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / iters / 1e3
+    return [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+             / iters / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of the kernels one ``fn()`` launches: their summed
+    time over ``iters`` calls under ``torch.profiler``, per call.  Where
+    it is well below ``time_ms``, the host's launches, not the card, set
+    the time."""
+    return sum(ms for _, ms, _ in device_kernels(fn, iters))
 
 
 # ---------------------------------------------------------------------------
@@ -2552,6 +2586,263 @@ def run_nccl_capture(w: Workload, per_slot: dict, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# Phase 3j: LM serving (Engine on qwen2-7b at full width)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2-7b"
+# (batch, prompt length, new tokens, max_len) of phase 3j's two greedy
+# requests.
+LM_REQUESTS = ((4, 1024, 64, 2048), (1, 4096, 32, 4160))
+# The kernel against the plain version on the model's own bf16 inputs:
+# PERF.md §2's bf16 attention tolerance, as phase 2 applies it (rtol =
+# atol).
+LM_ATTN_TOL = 2e-2
+
+
+def lm_prompts(seed: int, batch: int, length: int, vocab: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, (batch, length),
+                                                dtype=np.int32)
+
+
+def lm_bytes(tree) -> int:
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_request(model, params, i: int, seed: int, batch: int, plen: int,
+               n_new: int, max_len: int, device: torch.device) -> dict:
+    """One greedy request of phase 3j through ``Engine.generate``, the
+    counts set to 0 just before and read just after; returns them.
+    Every step is timed with CUDA events around the engine's step, and
+    its logits are checked finite on the card (one flag, read at the
+    end)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import _plan
+    from repro_torch.models.params import param_count
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = model.cfg
+    hq, hkv, d, nl = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.n_layers
+    n_params, w_bytes = param_count(params), lm_bytes(params)
+    prompts = lm_prompts(seed + i, batch, plen, cfg.vocab_size)
+    eng = Engine(model, params, ServeConfig(max_len=max_len))
+    events, finite = [], torch.ones((), dtype=torch.bool, device=device)
+    step = eng._step
+
+    def timed(*args):
+        nonlocal finite
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        events.append((start, end))
+        finite = finite & torch.isfinite(out[0]).all()
+        return out
+
+    eng._step = timed
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tokens, stats = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = dict(ops.LAUNCHES)
+    del eng._step      # the wrapper refers to the engine: break the cycle
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    prefill_ms, decode_ms = step_ms[0], statistics.median(step_ms[1:])
+    check(tokens.shape == (batch, n_new) and tokens.dtype == np.int32
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"lm request {i + 1}: tokens misshapen or out of range")
+    check(bool(finite), f"lm request {i + 1}: logits not finite")
+    check(stats == {"prompt_len": float(plen),
+                    "generated": float(n_new)},
+          f"lm request {i + 1}: stats {stats}")
+    check(launched["flash_attention"] == nl * n_new,
+          f"lm request {i + 1}: {launched['flash_attention']} "
+          f"flash_attention launches, want {nl * n_new}")
+    pre = _plan(plen, plen, hq, hkv, d, torch.bfloat16, batch=batch)
+    dec = _plan(1, plen + 1, hq, hkv, d, torch.bfloat16, batch=batch)
+    # Bounds: a decode step reads every weight and the valid cache
+    # once; the prefill's operations are every weight's product with
+    # each prompt token (the embedding is a gather) plus causal
+    # attention, at the tensor cores' bf16 peak.
+    kv_mid = plen + n_new // 2
+    kv_bytes = 2 * nl * batch * kv_mid * hkv * d * 2
+    dec_bound, dec_by = bound_ms(w_bytes + kv_bytes, 0)
+    pairs = plen * (plen + 1) // 2
+    pre_ops = (2 * (n_params - cfg.padded_vocab * cfg.d_model)
+               * batch * plen + nl * 4 * batch * hq * d * pairs)
+    pre_bound, pre_by = bound_ms(w_bytes, pre_ops, HALF_OPS_PER_S)
+    log(f"lm request {i + 1} ok: B={batch} P={plen} n_new={n_new} "
+        f"max_len={max_len} prefill_ms={prefill_ms:.3f} (bound "
+        f"{pre_bound:.3f}, {pre_by}) decode_step_ms_median="
+        f"{decode_ms:.3f} (bound {dec_bound:.3f}, {dec_by}; {len(step_ms) - 1}"
+        f" steps) wall_s={wall_s:.3f} tokens_per_s="
+        f"{batch * n_new / wall_s:.1f} decode_tokens_per_s="
+        f"{batch / decode_ms * 1e3:.1f} launches={launched} path "
+        f"prefill={pre.path} decode={dec.path} (splits {dec.splits})")
+    return launched
+
+
+def run_lm_serving(seed: int, device: torch.device,
+                   iters: int = 10) -> tuple[dict, dict]:
+    """Phase 3j: phase 2's ``flash_attention`` cases at the model's shapes
+    (``lm_attention_cases``), then ``Engine.generate`` on qwen2-7b at
+    full width and depth,
+    bf16 weights drawn on the card from ``seed``, greedy.  Two requests
+    (``LM_REQUESTS``), the counts set to 0 before each and read after:
+    tokens in range, every step's logits finite, the stats the
+    reference's, ``flash_attention`` launched once a layer a step.  Then
+    every attention call of the first request's prefill and first decode
+    step against the plain version on the same inputs, and the whole
+    first prefill against a ``backend="ref"`` model sharing the weights.
+    Frees everything it made.  Returns the launch counts and the kernel
+    cases' results."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import param_count, zeros_of
+    from repro_torch.serving import Engine, ServeConfig
+
+    cases = flash_attention_phase(
+        torch.Generator(device=device).manual_seed(seed), iters, device,
+        lm_attention_cases())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, w_bytes = param_count(params), lm_bytes(params)
+    expect = param_count(model.abstract())
+    check(n_params == expect, f"lm: {n_params} parameters, the defs say "
+                              f"{expect}")
+    hq, hkv, d, nl = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.n_layers
+    log(f"lm {LM_ARCH}: {nl} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} (padded {hq}) / kv {hkv}, head_dim {d}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); "
+        f"param_count {n_params} (n_params_analytic "
+        f"{cfg.n_params_analytic:.0f}), {w_bytes} bytes bf16 on {device}, "
+        f"drawn in {init_s:.2f} s")
+
+    counts = {name: 0 for name in ops.LAUNCHES}
+    for i, (batch, plen, n_new, max_len) in enumerate(LM_REQUESTS):
+        launched = lm_request(model, params, i, seed, batch, plen, n_new,
+                              max_len, device)
+        for name, c in launched.items():
+            counts[name] += c
+
+    # Every attention call of request 1's prefill and first decode step,
+    # the kernel against the plain version on the same inputs (these
+    # launches are not counted).
+    batch, plen, _, max_len = LM_REQUESTS[0]
+    prompts = lm_prompts(seed, batch, plen, cfg.vocab_size)
+    errs, excess = [], []
+    kernel_attention = L.multihead_attention
+
+    def hooked(q, k, v, **kw):
+        got = kernel_attention(q, k, v, **kw)
+        want = kernel_attention(q, k, v, **dict(kw, backend="ref")).float()
+        diff = (got.float() - want).abs()
+        errs.append(float(diff.max()))
+        # Phase 2's test: assert_close(rtol=atol=tol), so a bf16 output
+        # may differ by its rounding (2^-8 relative) at any magnitude.
+        excess.append(float((diff - LM_ATTN_TOL * want.abs()).max()))
+        return got
+
+    L.multihead_attention = hooked
+    try:
+        Engine(model, params, ServeConfig(max_len=max_len)).generate(
+            prompts, 2)
+    finally:
+        L.multihead_attention = kernel_attention
+    check(len(errs) == 2 * nl, f"lm: {len(errs)} hooked attention calls")
+    check(max(excess) <= LM_ATTN_TOL,
+          f"lm: attention differs from the plain version beyond rtol = "
+          f"atol = {LM_ATTN_TOL}: |diff| - rtol |plain| up to "
+          f"{max(excess)}")
+    log(f"lm attention vs plain ok: {len(errs)} calls (prefill + first "
+        f"decode step, every layer) within rtol = atol = {LM_ATTN_TOL}; "
+        f"max_abs_err prefill {max(errs[:nl]):.3g} decode "
+        f"{max(errs[nl:]):.3g}; max |diff| - rtol |plain| "
+        f"{max(excess):.3g}")
+
+    # The whole first prefill on the kernel and on the plain version.
+    ref_model = build_model(cfg, backend="ref")
+    toks = torch.as_tensor(prompts, device=device)
+    cache = zeros_of(model.cache_defs(batch, max_len), device=device)
+    with torch.no_grad():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got, cache = model.decode_step(params, cache, toks, 0)
+        end.record()
+        end.synchronize()
+        warm_ms = start.elapsed_time(end)
+        ref_cache = zeros_of(model.cache_defs(batch, max_len), device=device)
+        want = ref_model.decode_step(params, ref_cache, toks, 0)[0]
+        del ref_cache
+        v = cfg.vocab_size
+        diff = max(float((got[b].float() - want[b].float()).abs().max())
+                   for b in range(batch))
+        top1 = float((got[..., :v].argmax(-1) == want[..., :v].argmax(-1)
+                      ).float().mean())
+        del got, want
+    log(f"lm prefill kernel vs plain model: max_abs_logit_diff {diff:.4g}, "
+        f"top1_agreement {top1:.5f} over {batch * plen} positions (bf16, "
+        f"{nl} layers; no bound); the kernel model's prefill again, warm: "
+        f"{warm_ms:.3f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, model, ref_model, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm phase ok: peak_bytes {peak} (max_memory_allocated); "
+        f"allocated {before} bytes before the phase, "
+        f"{torch.cuda.memory_allocated()} after")
+    lm_decode_profile(seed, device)
+    return counts, cases
+
+
+def lm_decode_profile(seed: int, device: torch.device) -> None:
+    """Where a decode step of phase 3j's request 1 spends the card's
+    time: the model drawn again, a zero cache at kv 1,025, one step's
+    device ms, kernels and largest kernels (``device_kernels``).  Its
+    launches are not counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import zeros_of
+
+    batch, plen, _, max_len = LM_REQUESTS[0]
+    model = build_model(get_config(LM_ARCH))
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    cache = zeros_of(model.cache_defs(batch, max_len), device=device)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+    iters = 5
+    with torch.no_grad():
+        rows = sorted(device_kernels(
+            lambda: model.decode_step(params, cache, tok, plen), iters),
+            key=lambda r: -r[1])
+    n_kernels = sum(n for name, _, n in rows if not name.lower().startswith(
+        ("memcpy", "memset"))) // iters
+    top = [(name[:60], round(ms, 4)) for name, ms, _ in rows[:5]]
+    log(f"lm decode step device_ms {sum(ms for _, ms, _ in rows):.3f}, "
+        f"{n_kernels} kernels (B={batch}, kv {plen + 1}; torch.profiler, "
+        f"{iters} steps) largest kernels {top}")
+    del model, params, cache, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2844,6 +3135,17 @@ def attention_cases():
     ]
 
 
+def lm_attention_cases():
+    """Phase 2's cases at phase 3j's shapes (run in 3j's process):
+    qwen2-7b's 32 padded query heads, request 1's prefill (4 x 1,024)
+    and a decode step over 1,088 keys."""
+    hkv, d, bf16 = ATTN_KV_HEADS, ATTN_DIM, torch.bfloat16
+    return [("lm_prefill_bfloat16", (4, LM_HEADS, 1024, d),
+             (4, hkv, 1024, d), bf16),
+            ("lm_decode_bfloat16", (4, LM_HEADS, 1, d), (4, hkv, 1088, d),
+             bf16)]
+
+
 def attention_inputs(gen, dev, q_shape, kv_shape, dtype):
     return [torch.randn(shape, generator=gen, device=dev).to(dtype)
             for shape in (q_shape, kv_shape, kv_shape)]
@@ -2858,7 +3160,7 @@ def hgmma_count(path: Path) -> int:
     return sum("HGMMA" in line for line in out.stdout.splitlines())
 
 
-def flash_attention_phase(gen, iters: int, dev) -> dict:
+def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import _plan, flash_attention
@@ -2866,7 +3168,7 @@ def flash_attention_phase(gen, iters: int, dev) -> dict:
     # The plain version's float32 products run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     results = {}
-    for label, q_shape, kv_shape, dtype in attention_cases():
+    for label, q_shape, kv_shape, dtype in cases or attention_cases():
         tol, rate = {torch.bfloat16: (2e-2, HALF_OPS_PER_S),
                      torch.float16: (2e-3, HALF_OPS_PER_S)}.get(
                          dtype, (2e-5, FP32_OPS_PER_S))
@@ -2913,9 +3215,12 @@ def flash_attention_phase(gen, iters: int, dev) -> dict:
         log(f"kernel flash_attention {label}: {results[label]}")
         del q, k, v, got, want, mask
         torch.cuda.empty_cache()
-    check(results["prefill_bfloat16"]["path"] == "wgmma"
-          and results["decode_bfloat16"]["path"] == "split",
-          "flash_attention: bf16 prefill or decode off its path")
+    for prefill, decode in (("prefill_bfloat16", "decode_bfloat16"),
+                            ("lm_prefill_bfloat16", "lm_decode_bfloat16")):
+        if prefill in results:
+            check(results[prefill]["path"] == "wgmma"
+                  and results[decode]["path"] == "split",
+                  f"flash_attention: {prefill} or {decode} off its path")
     return results
 
 
@@ -3307,6 +3612,10 @@ def main(argv=None) -> int:
             launches[name] += c
     if args.profile is not None:
         profile_runs(w, skew, dev, args.profile)
+    lm_counts, lm_cases = run_lm_serving(args.seed, dev, args.iters)
+    phases["flash_attention"].update(lm_cases)
+    for name, c in lm_counts.items():
+        launches[name] += c
 
     # The heaviest case of each kernel's path goes into the line; the
     # path's hash_histogram launches are all bucket_counts.

@@ -47,7 +47,8 @@ all_gather_single = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 
 #: The device this process's shards live on, set by :func:`spawn`'s
-#: worker (or :func:`set_device`); meshes made without a device take it.
+#: worker (or :func:`set_device`); meshes made without a device take
+#: it, or the current CUDA device when it is unset.
 _DEVICE: Optional[torch.device] = None
 
 def set_device(device) -> torch.device:
@@ -63,7 +64,16 @@ def set_device(device) -> torch.device:
 
 
 def current_device() -> torch.device:
-    return _DEVICE if _DEVICE is not None else torch.device("cpu")
+    """The device set by :func:`set_device`, else the current CUDA
+    device.  With neither it raises: a mesh is on the CPU only when
+    asked for it (``device="cpu"``)."""
+    if _DEVICE is not None:
+        return _DEVICE
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device and no device set: pass device='cpu' (or call "
+            "repro_torch.distributed.set_device) to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 class Mesh:
@@ -148,6 +158,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device=None) -> Mesh:
     group; raises when the group is smaller than the mesh."""
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} vs axes {tuple(axes)}")
+    device = current_device() if device is None else device
     n = int(np.prod(shape, dtype=np.int64))
     have = dist.get_world_size() if dist.is_initialized() else 1
     if not dist.is_initialized() or n > have:
@@ -167,7 +178,7 @@ def emulated_host_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
 
 def single_device_mesh(device=None) -> Mesh:
     """1×1 mesh — the production axis names on rank 0 of the default
-    group."""
+    group, on ``device`` (default: :func:`current_device`, the card)."""
     return make_mesh((1, 1), ("data", "model"), device=device)
 
 
@@ -340,7 +351,7 @@ class Ranks:
 
 
 def start(fn: Callable, world_size: int, *, backend: str = "gloo",
-          device: str = "cpu", args: tuple = (), timeout: float = 600.0
+          device: str = "cuda", args: tuple = (), timeout: float = 600.0
           ) -> Ranks:
     """:func:`spawn` without the wait: the ranks run while the caller
     goes on; ``.result()`` waits for them."""
@@ -348,18 +359,19 @@ def start(fn: Callable, world_size: int, *, backend: str = "gloo",
 
 
 def spawn(fn: Callable, world_size: int, *, backend: str = "gloo",
-          device: str = "cpu", args: tuple = (), timeout: float = 600.0):
+          device: str = "cuda", args: tuple = (), timeout: float = 600.0):
     """Start ``world_size`` ranks, initialise the default process group
     on each (a ``file://`` rendezvous in a fresh temporary directory),
     run ``fn(rank, *args)`` on every rank, and return what rank 0
     returned — the port's ``configure_platform(host_devices=N)``.
 
-    ``backend`` is ``"gloo"`` or ``"nccl"``; ``device`` is ``"cpu"`` or
-    ``"cuda"`` (rank r on card ``r % device_count``: every rank on
-    ``cuda:0`` with one card).  The ranks fork from a ``forkserver``
-    process that imports torch, ``torch._dynamo``, ``repro_torch.core``,
-    ``repro_torch.analysis`` and ``fn``'s module once, so ``fn`` and ``args`` must be
-    picklable (a module-level function).  The first rank to fail is
+    ``backend`` is ``"gloo"`` or ``"nccl"``; ``device`` is ``"cuda"``
+    (the default: rank r on card ``r % device_count``, every rank on
+    ``cuda:0`` with one card) or ``"cpu"``.  The ranks fork from a
+    ``forkserver`` process that imports torch, ``torch._dynamo``,
+    ``repro_torch.core``, ``repro_torch.analysis`` and ``fn``'s module
+    once, so ``fn`` and ``args`` must be picklable (a module-level
+    function).  The first rank to fail is
     re-raised here, with its traceback as a note, and the others are
     stopped; so is every rank still running after ``timeout``
     seconds."""

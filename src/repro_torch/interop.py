@@ -1,13 +1,18 @@
-"""Carrying state across packages: relations and plans as numpy.
+"""Carrying state across packages: relations, plans and LM weights as
+numpy.
 
-The system has no weights; its state is relations and plans.  A
-relation crosses between the JAX package and this one as a dict of
-numpy columns plus the validity mask (``np.asarray`` on each field of
-the JAX ``Relation``), grid axes included; a capacity budget crosses as
-its dataclass fields.  A stored relation crosses as its partitions'
+The join engine's state is relations and plans.  A relation crosses
+between the JAX package and this one as a dict of numpy columns plus
+the validity mask (``np.asarray`` on each field of the JAX
+``Relation``), grid axes included; a capacity budget crosses as its
+dataclass fields.  A stored relation crosses as its partitions'
 columns, ``(P, part_capacity)``, plus its spec's fields — or on disk:
 the two packages' partitioned stores share one format
 (``repro_torch.checkpoint``).
+
+A language model's parameters cross as their tree (nested dicts,
+stacked layers on the leading axis) of numpy arrays, bit for bit
+(:func:`params_from_numpy`, :func:`params_to_numpy`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from .core.executor import ChainCaps
 from .core.partition import PartitionedRelation, PartitionSpec
 from .core.relation import Relation
+from .models.params import tree_map
 
 
 def relation_from_numpy(cols: Mapping[str, np.ndarray], valid: np.ndarray,
@@ -66,3 +72,36 @@ def partitioned_to_numpy(prel: PartitionedRelation
     host."""
     cols, valid = relation_to_numpy(prel.parts)
     return cols, valid, dataclasses.asdict(prel.spec)
+
+
+def params_from_numpy(tree, device, dtype=None):
+    """The port's tensors for a tree of numpy arrays (the JAX package's
+    parameters through ``np.asarray``), on ``device``, bit for bit, then
+    cast to ``dtype`` if one is given.  numpy has no bfloat16: JAX's
+    bfloat16 leaves arrive as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses, so they cross as their uint16 bits."""
+    def one(a):
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:       # JAX's arrays through np.asarray
+            a = a.copy()
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        t = t.to(device)
+        return t if dtype is None else t.to(dtype)
+    return tree_map(one, tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`: host numpy arrays, a
+    bfloat16 tensor as ``ml_dtypes.bfloat16`` (the dtype JAX gives its
+    bfloat16 arrays), bit for bit."""
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return tree_map(one, tree)

@@ -1,11 +1,21 @@
-"""Query serving: the plan-and-executable cache over the join engine.
+"""Serving: the LM engine and the query-serving engine.
 
-Port of the query half of ``src/repro/serving/engine.py``.
-:class:`QueryEngine` is the query-serving front end.  Production
-serving re-answers the same query *shapes* continuously; planning
-(``plan_query``) and capture (``jit_execute_query``: the whole plan as
-one CUDA graph on the GPU) are the per-request costs worth amortizing,
-so the engine keeps a bounded LRU **plan-and-executable cache** keyed on
+Port of ``src/repro/serving/engine.py``.  Two front ends live here:
+
+* :class:`Engine` — batched LM prefill + decode with a static KV cache
+  (``Model.decode_step`` handles both phases: prefill is one call with
+  S = prompt length at pos 0, decode is S = 1 calls at advancing pos;
+  sampling is greedy or temperature-based, batched).  Eager: a decode
+  step is the layers' launches, the cache written in place.
+
+* :class:`QueryEngine` — the query-serving front end over the join
+  engine.
+
+Production query serving re-answers the same query *shapes*
+continuously; planning (``plan_query``) and capture
+(``jit_execute_query``: the whole plan as one CUDA graph on the GPU)
+are the per-request costs worth amortizing, so the engine keeps a
+bounded LRU **plan-and-executable cache** keyed on
 
     (query structure, stats-sketch signature, caps, strategy,
      join order, partitioning certificate, key dtype, k, join_impl)
@@ -20,7 +30,9 @@ error or per-lane overflow flag never touches co-batched lanes).
 :class:`ServingStats` surfaces cache hits/misses/evictions, p50/p99
 latency, and throughput.
 
-The engine's device is explicit: ``QueryEngine(cfg, device=None)``
+Both engines' devices are explicit: an ``Engine`` runs where its
+parameters lie (``Model.init`` puts them on the GPU unless asked for
+another device); ``QueryEngine(cfg, device=None)``
 builds every input on the GPU unless the caller asks for another
 device (``device="cpu"`` runs the plain versions of the kernels).  A
 chain request with a current partitioning certificate runs the map-side
@@ -29,7 +41,7 @@ cascade over prebuilt
 whose certificate is stale degrades to the shuffle cascade, its
 prebuilt partitions flattened back.  Streaming ingest
 (:class:`~repro_torch.serving.store.ServingStore`) runs its delta terms
-through this engine.  Not ported yet: the LM ``Engine`` (ROADMAP A15).
+through this engine.
 """
 
 from __future__ import annotations
@@ -51,8 +63,84 @@ from ..core.cost_model import ChainPartitioning, ChainStats, QueryStats
 from ..core.executor import ChainCaps, CompiledPlan, input_signature
 from ..core.partition import PartitionedRelation
 from ..core.relation import Relation
+from ..distributed.sharding import Planner
+from ..models.params import zeros_of
 
 AnyStats = Union[QueryStats, ChainStats]
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 512
+    temperature: float = 0.0       # 0 => greedy
+    seed: int = 0
+
+
+class Engine:
+    """Generate tokens from a model of ``repro_torch.models.lm`` and its
+    parameters, on the parameters' device."""
+
+    def __init__(self, model, params, serve_cfg: ServeConfig,
+                 planner: Optional[Planner] = None):
+        self.model = model
+        self.params = params
+        self.cfg = serve_cfg
+        self.planner = planner or Planner.null()
+        self.device = params["embedding"].device
+
+    def _step(self, params, cache, tokens, pos: int):
+        return self.model.decode_step(params, cache, tokens, pos,
+                                      self.planner)
+
+    def _sample(self, logits: torch.Tensor,
+                gen: Optional[torch.Generator]) -> torch.Tensor:
+        logits = logits[:, -1, :self.model.cfg.vocab_size].float()
+        if self.cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        # Not the reference's jax.random.categorical stream: the same
+        # distribution, drawn from a torch.Generator (ROADMAP C7).
+        probs = torch.softmax(logits / self.cfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
+            torch.int32)
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 ) -> Tuple[np.ndarray, Dict[str, float]]:
+        """prompts: (B, P) int32.  Returns (B, n_new) generated tokens."""
+        B, P = prompts.shape
+        if n_new < 0:
+            raise ValueError(f"n_new must be >= 0, got {n_new}")
+        if P + n_new > self.cfg.max_len:
+            raise ValueError(
+                f"prompt length {P} + n_new {n_new} exceeds the static KV "
+                f"cache (max_len {self.cfg.max_len})")
+        if n_new == 0:
+            return (np.zeros((B, 0), np.int32),
+                    {"prompt_len": float(P), "generated": 0.0})
+        cache = zeros_of(self.model.cache_defs(B, self.cfg.max_len),
+                         device=self.device)
+        gen = None
+        if self.cfg.temperature > 0.0:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.cfg.seed)
+
+        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
+                                 device=self.device)
+        logits, cache = self._step(self.params, cache, tokens, 0)
+        tok = self._sample(logits, gen)
+        out = [tok]
+        pos = P
+        for _ in range(n_new - 1):
+            logits, cache = self._step(self.params, cache, tok[:, None], pos)
+            tok = self._sample(logits, gen)
+            out.append(tok)
+            pos += 1
+        gen_tokens = torch.stack(out, dim=1).cpu().numpy()
+        return gen_tokens, {"prompt_len": float(P), "generated": float(n_new)}
 
 
 # ---------------------------------------------------------------------------
