@@ -13,9 +13,10 @@ The port of ``benchmarks/roofline.py``, three sections in
   ``searchsorted`` as ``probe_ref``) timed apart.  Times come from the
   card only; on the CPU each is null.  Gate (full mode, the
   reference's): fused ≥ 1.5× at the largest capacity.
-* ``overlap`` — in the reference, one shuffle-heavy hop on a
-  16-device ShardGrid.  The port has no ``torch.distributed`` grid
-  yet, so the section is null with its reason (ROADMAP A12), and its
+* ``overlap`` — in the reference, one shuffle-heavy hop timed on a
+  16-device ShardGrid.  The port's ShardGrid runs on
+  ``torch.distributed``, but the card is one device: the section stays
+  null with its reason (A12's rest, not runnable on one card), and its
   gates are not evaluated.  The inputs it would draw are still drawn,
   so the next section sees the reference's random stream.
 * ``accounting`` — that hop on ``SimGrid((16,))``, staged and
@@ -59,8 +60,8 @@ OVERLAP_DEVICES = 16
 OVERLAP_CHUNKS = 4
 CAPACITIES = (1024, 4096, 16384)
 FAST_CAPACITIES = (1024, 4096)
-OVERLAP_SKIPPED = ("ShardGrid: ROADMAP A12 — the overlap hop runs on a "
-                   "16-device torch.distributed grid, not ported yet")
+OVERLAP_SKIPPED = ("ShardGrid (ROADMAP A12's rest): the reference times "
+                   "the overlap hop on 16 devices; the card is one device")
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,13 @@ Phases, each failing the run on any error:
    cores, decode in bfloat16 and float32 split over the kv axis, and
    float32 prefill on the CUDA cores; each case logs the path ``_plan``
    chose.  Phase 3j adds two cases at the model's shapes.
+   ``flash_attention_bwd`` (the gradient, port-only: the JAX package
+   differentiates its jnp attention) runs at granite-3-2b's attention
+   as phase 3k's train step calls it (32 query heads over 8 kv heads,
+   head dim 64, 2,048 positions, causal) in bfloat16 and float32, a
+   ragged chunk at head dim 128 and head dim 256; each against
+   ``ref.attention_backward`` (2e-2 bf16, 1e-4 f32), two launches
+   bit-equal, with SDPA's backward as the library time.
 3. The main path at full size: R-MAT ``amazon`` at ``--scale`` (edge
    factor 3, a = 0.50), planned with ``chain_stats_exact`` and
    ``plan_chain(k=16)``, sized by ``default_chain_caps``, and run by
@@ -138,8 +145,26 @@ Phases, each failing the run on any error:
    in a process of its own, without the profiler), its GEMMs left the
    profiler dropping kernel records from phase 3b's traces (ROADMAP
    C9).
+3k. LM training, after 3j: granite-3-2b at full width and depth (40
+   layers, d_model 2,048, 32 heads / 8 kv heads, head dim 64, d_ff
+   8,192, vocab 49,155 padded to 49,280; 2,634,713,088 parameters;
+   remat, microbatch 8, AdamW), bf16 weights drawn on the card from
+   ``--seed``, its bytes reckoned first and held to the card.  One
+   microbatch's gradient (1 x 2,048 tokens) with the attention kernels
+   against a ``backend="ref"`` model's: the cosine of the flattened
+   gradient (>= 0.99) and the lowest leaf cosine (logged).  Then
+   ``make_train_step`` with ``cosine_with_warmup(3e-4, 2, 8)`` on
+   ``DataConfig(49155, 2048, 8)``: one warm-up step and 8 timed ones
+   (CUDA events around each step), the counts set to 0 before the timed
+   steps and read after (``flash_attention`` twice a layer a
+   microbatch under remat, ``flash_attention_bwd`` once), every loss
+   logged, the mean of the last two below the first; step ms against
+   the step's reckoned bound, tokens/s, peak bytes.  Then
+   ``Trainer.run`` at the smoke config on the card: 6 steps, a
+   simulated failure at step 4, the restart from the step-3 checkpoint,
+   the resumed losses within 1e-5 relative of an uninterrupted run.
 6. One JSON line with every kernel's numbers (``flash_attention``'s
-   launches include phase 3j's), the card line, and last
+   launches include phase 3j's and 3k's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -222,6 +247,12 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:88"),
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:88",
+        note="port-only: the gradient of that kernel's function; the JAX "
+             "package has no backward kernel and differentiates its jnp "
+             "attention (src/repro/models/layers.py:96)"),
 }
 
 
@@ -2843,6 +2874,339 @@ def lm_decode_profile(seed: int, device: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3k: LM training — granite-3-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-3-2b"
+# One warm-up step, then the timed steps; the schedule's warm-up and
+# total steps (cosine_with_warmup(3e-4, 2, 8)).
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_TOTAL, TRAIN_LR = 8, 2, 8, 3e-4
+# DataConfig: one 2,048-token sequence a microbatch (microbatch=8).
+TRAIN_SEQ, TRAIN_BATCH = 2048, 8
+# The kernel model's gradient against the plain-attention model's, one
+# microbatch: the cosine of the whole flattened gradient.
+TRAIN_GRAD_COSINE = 0.99
+# The smoke Trainer on the card: steps, a simulated failure, checkpoints.
+SMOKE_STEPS, SMOKE_FAIL, SMOKE_EVERY = 6, 4, 2
+# Resumed losses against an uninterrupted card run: torch's own index
+# backward (the embedding's gradient) sums with atomics on the card.
+SMOKE_RESUME_RTOL = 1e-5
+TRAIN_MARGIN = 4 << 30
+
+
+def train_reckoning(cfg, n_params: int) -> tuple[float, str]:
+    """Device bytes of phase 3k, reckoned from the config before it
+    runs: the larger of the gradient comparison (bf16 weights and two
+    bf16 gradient trees) and the train step (bf16 weights, AdamW's
+    float32 m and v, the float32 accumulator, one microbatch's bf16
+    gradients, the clip's and the accumulation's float32 temporaries of
+    the largest leaf), plus activations: under remat each layer's
+    input, one layer's recompute, and the loss's (S, vocab) logits in
+    bf16 and float32 with their gradients."""
+    s, d, f = TRAIN_SEQ, cfg.d_model, cfg.d_ff
+    largest = cfg.n_layers * d * f                      # the MLP stacks
+    acts = (cfg.n_layers * s * d * 2 + 24 * s * max(d, f) * 4
+            + 4 * s * cfg.padded_vocab * 4)
+    compare = 2 * n_params + 2 * 2 * n_params
+    step = (2 * n_params + 8 * n_params + 4 * n_params + 2 * n_params
+            + 2 * 4 * largest)
+    need = max(compare, step) + acts
+    return need, (f"weights {2 * n_params}, m+v {8 * n_params}, "
+                  f"accumulator {4 * n_params}, microbatch grads "
+                  f"{2 * n_params}, temporaries {8 * largest}, activations "
+                  f"{acts}; gradient comparison {compare + acts}")
+
+
+def train_bound(cfg, n_params: int) -> tuple[float, str]:
+    """Least time of one train step, reckoned from the code: per token
+    the blocks' weights run forward, again in the remat recompute, and
+    backward (2 + 2 + 4 operations a weight), the lm_head forward and
+    backward (6 a weight, on S - 1 positions); attention per layer and
+    sequence 4·D·Hq a visible pair forward, 4 again in the recompute,
+    8 backward; all at the bf16 tensor-core peak.  The embedding is a
+    gather.  The bytes (weights read 3x, the optimizer's state read and
+    written) are a small fraction of it."""
+    hq, dh, nl = cfg.padded_heads, cfg.head_dim, cfg.n_layers
+    head = cfg.d_model * cfg.padded_vocab
+    blocks = n_params - 2 * head - cfg.d_model          # - embedding, head, ln_f
+    seqs, s = TRAIN_BATCH, TRAIN_SEQ
+    ops_blocks = 8 * blocks * seqs * s
+    ops_head = 6 * head * seqs * (s - 1)
+    ops_attn = 16 * dh * hq * attention_pairs(s, s) * nl * seqs
+    n_ops = ops_blocks + ops_head + ops_attn
+    n_bytes = 3 * 2 * n_params + (2 + 2 + 8 + 8 + 4 + 4) * n_params
+    ms, by = bound_ms(n_bytes, n_ops, HALF_OPS_PER_S)
+    return ms, (f"{by}: blocks 8 x {blocks} weights x {seqs * s} tokens = "
+                f"{ops_blocks:.4g}, lm_head 6 x {head} x {seqs * (s - 1)} = "
+                f"{ops_head:.4g}, attention 16 x D {dh} x Hq {hq} x "
+                f"{attention_pairs(s, s)} pairs x {nl} layers x {seqs} = "
+                f"{ops_attn:.4g}; {n_ops:.4g} operations at 989 TFLOP/s; "
+                f"{n_bytes:.4g} bytes at 3.35 TB/s")
+
+
+def grad_cosines(a: list, b: list) -> tuple[float, float]:
+    """Cosine of the two flattened gradients, and the lowest cosine of
+    any leaf, in float32 (no host copy of a leaf)."""
+    dot = na = nb = 0.0
+    lowest = 1.0
+    for x, y in zip(a, b):
+        x, y = x.float(), y.float()
+        d, sx, sy = (float((x * y).sum()), float((x * x).sum()),
+                     float((y * y).sum()))
+        dot, na, nb = dot + d, na + sx, nb + sy
+        lowest = min(lowest, d / max(math.sqrt(sx * sy), 1e-30))
+    return dot / max(math.sqrt(na * nb), 1e-30), lowest
+
+
+def run_smoke_trainer(seed: int, device: torch.device) -> dict:
+    """``Trainer.run`` on the card at granite-3-2b's smoke config (bf16,
+    64-token sequences): an uninterrupted run, a run that fails at step
+    ``SMOKE_FAIL``, and its restart from the checkpoint at step
+    ``SMOKE_FAIL - 1``; the stitched losses against the uninterrupted
+    ones.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    model = build_model(cfg)
+    p0 = model.init(torch.Generator(device=device).manual_seed(seed),
+                    device=device)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                      global_batch=4, seed=seed)
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name):
+            return Trainer(model, data, TrainConfig(
+                steps=SMOKE_STEPS, lr=1e-3, warmup=2,
+                checkpoint_every=SMOKE_EVERY, log_every=100,
+                checkpoint_dir=os.path.join(tmp, name)), device=device)
+
+        full = trainer("a").run(init_params=p0, resume=False)
+        dead = trainer("b")
+        try:
+            dead.run(init_params=p0, resume=False, fail_at_step=SMOKE_FAIL)
+            check(False, "smoke trainer: the simulated failure never came")
+        except RuntimeError as e:
+            check("simulated node failure" in str(e), str(e))
+        dead.ckpt.wait()
+        resumed = trainer("b").run(init_params=p0, resume=True)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = [m["loss"] for m in full["metrics"]]
+    before = [m["loss"] for m in dead.metrics]
+    after = [m["loss"] for m in resumed["metrics"]]
+    check(len(before) == SMOKE_FAIL and resumed["metrics"][0]["step"]
+          == SMOKE_FAIL, f"smoke trainer: resumed at "
+          f"{resumed['metrics'][0]['step']}, {len(before)} steps before")
+    stitched = before[:SMOKE_FAIL] + after
+    rel = max(abs(a - b) / abs(b) for a, b in zip(stitched, want))
+    check(rel <= SMOKE_RESUME_RTOL and all(math.isfinite(x) for x in want),
+          f"smoke trainer: resumed losses {stitched} against {want}")
+    check(counts["flash_attention"] > 0 and counts["flash_attention_bwd"]
+          > 0, f"smoke trainer: launches {counts}")
+    log(f"lm train smoke trainer ok: {cfg.arch} bf16 on {device}, "
+        f"{SMOKE_STEPS} steps, failed at step {SMOKE_FAIL}, resumed from "
+        f"the checkpoint at step {SMOKE_FAIL - 1}: losses {stitched} "
+        f"against the uninterrupted {want} (max relative difference "
+        f"{rel:.3g} <= {SMOKE_RESUME_RTOL}); launches {counts}")
+    return counts
+
+
+def kernel_group(name: str) -> str:
+    """The part of a train step a device function belongs to."""
+    low = name.lower()
+    if "attention_bwd" in low:
+        return "flash_attention_bwd"
+    if any(k in low for k in ("attention_wgmma", "attention_split",
+                              "flash_attention_kernel")):
+        return "flash_attention"
+    if any(k in low for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")):
+        return "gemm"
+    if low.startswith(("memcpy", "memset")):
+        return "copy"
+    return "other"
+
+
+def lm_train_profile(model, planner, params, mb: dict, opt_state,
+                     opt_update, grads) -> None:
+    """Where a train step's time goes: one microbatch's
+    ``compute_grads`` and one optimizer update, each timed with CUDA
+    events and traced once with ``torch.profiler``: device ms by group
+    (the two attention kernels, cuBLAS GEMMs, copies, the rest), kernel
+    count and largest kernels.  Its launches are not counted."""
+    from repro_torch.train import compute_grads
+
+    parts = (("microbatch", lambda: compute_grads(model, planner, params,
+                                                  mb, 1)),
+             ("adamw update", lambda: opt_update(grads, opt_state, params)))
+    for label, fn in parts:
+        wall = time_ms(fn, 1, warmup=1)
+        rows = device_kernels(fn, 1)
+        groups: dict = {}
+        for name, ms, n in rows:
+            g = kernel_group(name)
+            t, c = groups.get(g, (0.0, 0))
+            groups[g] = (t + ms, c + n)
+        busy = sum(ms for _, ms, _ in rows)
+        n_kernels = sum(c for g, (_, c) in groups.items() if g != "copy")
+        top = [(name[:50], round(ms, 3)) for name, ms, _ in
+               sorted(rows, key=lambda r: -r[1])[:6]]
+        log(f"lm train profile {label}: wall_ms {wall:.3f} (CUDA events), "
+            f"device_ms {busy:.3f} (busy share {busy / wall:.3f}), "
+            f"{n_kernels} kernels; device ms by group "
+            f"{ {g: (round(t, 3), c) for g, (t, c) in groups.items()} }; "
+            f"largest kernels {top}")
+
+
+def run_lm_training(seed: int, device: torch.device) -> dict:
+    """Phase 3k: ``make_train_step`` on granite-3-2b at full width and
+    depth (bf16 weights from ``seed``, remat, microbatch 8, AdamW with
+    ``cosine_with_warmup(3e-4, 2, 8)``): its bytes reckoned and held to
+    the card first; one microbatch's gradient with the attention kernels
+    against a ``backend="ref"`` model's (cosine); one warm-up step, then
+    ``TRAIN_STEPS`` timed steps, the counts set to 0 before them and
+    read after (``flash_attention`` twice a layer a microbatch under
+    remat, ``flash_attention_bwd`` once); the loss must fall.  Then the
+    smoke Trainer on the card.  Frees all it made; returns the phase's
+    launch counts and ``{step_ms, bound_ms, peak}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, shard_batch
+    from repro_torch.distributed.sharding import Planner
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import param_count, tree_leaves, tree_map
+    from repro_torch.optim import cosine_with_warmup, make_optimizer
+    from repro_torch.train import compute_grads, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    n_params = param_count(model.abstract())
+    need, parts = train_reckoning(cfg, n_params)
+    total = torch.cuda.get_device_properties(device).total_memory
+    log(f"lm train {cfg.arch}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads} / kv {cfg.n_kv_heads}, "
+        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"(padded {cfg.padded_vocab}); param_count {n_params}; microbatch "
+        f"{cfg.microbatch}, remat {cfg.remat} ({cfg.remat_policy}), "
+        f"{cfg.optimizer}; reckoned {need:.0f} bytes ({parts}) of "
+        f"{total} on the card")
+    check(need + TRAIN_MARGIN <= total,
+          f"lm train: reckoned {need} bytes do not fit the card's {total}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    planner = Planner.null()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    torch.cuda.synchronize()
+    log(f"lm train weights drawn in {time.perf_counter() - t0:.2f} s")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+
+    def batch(step: int) -> dict:
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in shard_batch(data, step, 0, 1).items()}
+
+    # One microbatch's gradient: the kernels against the plain version.
+    mb = {"tokens": batch(0)["tokens"][:1]}
+    ops.reset_launches()
+    loss_k, grads_k = compute_grads(model, planner, params, mb, 1)
+    torch.cuda.synchronize()
+    counts_cmp = dict(ops.LAUNCHES)
+    check(counts_cmp["flash_attention"] == 2 * cfg.n_layers
+          and counts_cmp["flash_attention_bwd"] == cfg.n_layers,
+          f"lm train: one microbatch launched {counts_cmp}, want "
+          f"{2 * cfg.n_layers} forward and {cfg.n_layers} backward")
+    ref_model = build_model(cfg, backend="ref")
+    loss_r, grads_r = compute_grads(ref_model, planner, params, mb, 1)
+    cos, lowest = grad_cosines(tree_leaves(grads_k), tree_leaves(grads_r))
+    check(all(g is not None and g.shape == p.shape for g, p in
+              zip(tree_leaves(grads_k), tree_leaves(params))),
+          "lm train: a leaf has no gradient")
+    check(cos >= TRAIN_GRAD_COSINE, f"lm train: gradient cosine {cos} "
+          f"< {TRAIN_GRAD_COSINE}")
+    log(f"lm train gradient kernel vs plain ok: one microbatch (1 x "
+        f"{TRAIN_SEQ}), loss {float(loss_k):.6f} vs {float(loss_r):.6f}, "
+        f"cosine of the flattened gradient {cos:.6f} (>= "
+        f"{TRAIN_GRAD_COSINE}), lowest leaf cosine {lowest:.6f} (logged), "
+        f"launches {counts_cmp}")
+    del grads_k, grads_r, ref_model, loss_k, loss_r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt_init, opt_update, _ = make_optimizer(cfg.optimizer, cosine_with_warmup(
+        TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL))
+    opt_state = opt_init(params)
+    step_fn = make_train_step(model, planner, opt_update, clip_norm=1.0)
+    losses, norms, step_ms = [], [], []
+    counts = dict(counts_cmp)
+    ops.reset_launches()
+    for step in range(TRAIN_STEPS + 1):
+        b = batch(step)
+        if step == 1:                    # the timed steps start here
+            for name, c in ops.LAUNCHES.items():
+                counts[name] += c        # the warm-up step's
+            ops.reset_launches()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, _, m = step_fn(params, opt_state, b, None)
+        end.record()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    timed = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_mb = cfg.microbatch * TRAIN_STEPS
+    check(timed["flash_attention"] == 2 * cfg.n_layers * n_mb
+          and timed["flash_attention_bwd"] == cfg.n_layers * n_mb,
+          f"lm train: {TRAIN_STEPS} steps launched {timed}, want "
+          f"{2 * cfg.n_layers * n_mb} forward and {cfg.n_layers * n_mb} "
+          f"backward")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"lm train: losses {losses}, grad norms {norms}")
+    check(sum(losses[-2:]) / 2 < losses[0],
+          f"lm train: the loss did not fall: {losses}")
+    check(peak < total, f"lm train: peak {peak} bytes")
+    med = statistics.median(step_ms[1:])
+    bound, how = train_bound(cfg, n_params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"lm train bound: {bound:.3f} ms a step ({how})")
+    log(f"lm train ok: {TRAIN_STEPS} steps after 1 warm-up, step_ms median "
+        f"{med:.3f} (bound {bound:.3f}; warm-up {step_ms[0]:.3f}; all "
+        f"{[round(x, 3) for x in step_ms]}), tokens_per_s "
+        f"{tokens / med * 1e3:.1f}; losses {losses}; grad norms "
+        f"{[round(x, 4) for x in norms]}; peak_bytes {peak} "
+        f"(max_memory_allocated; reckoned {need:.0f}); launches {timed} "
+        f"(want {2 * cfg.n_layers} forward and {cfg.n_layers} backward a "
+        f"microbatch x {n_mb})")
+    del step_fn, b, m
+    gc.collect()
+    # The update's cost does not depend on the values: zero gradients.
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    lm_train_profile(model, planner, params, mb, opt_state, opt_update,
+                     grads)
+    del params, opt_state, model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm train phase: allocated {before} bytes before, "
+        f"{torch.cuda.memory_allocated()} after")
+    for name, c in timed.items():
+        counts[name] += c
+    for name, c in run_smoke_trainer(seed, device).items():
+        counts[name] += c
+    return counts, dict(step_ms=med, bound_ms=bound, peak=peak)
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -3202,8 +3566,7 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
         dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
                            iters)
         lib_dev_ms = device_ms(library, iters)
-        pairs = sum(max(0, min(skv, i + skv - sq + 1)) for i in range(sq))
-        n_ops = 4 * b * h * d * pairs
+        n_ops = 4 * b * h * d * attention_pairs(sq, skv)
         n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
         results[label] = dict(
@@ -3221,6 +3584,117 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
             check(results[prefill]["path"] == "wgmma"
                   and results[decode]["path"] == "split",
                   f"flash_attention: {prefill} or {decode} off its path")
+    return results
+
+
+# The backward kernel's cases: granite-3-2b's attention as phase 3k's
+# train step calls it (32 query heads over 8 kv heads, head dim 64, one
+# 2,048-token sequence a microbatch, causal), in both dtypes, then a
+# ragged chunk after cached keys at qwen2-7b's widths (head dim 128)
+# and the widest instance (head dim 256).
+GRANITE_HEADS, GRANITE_KV_HEADS, GRANITE_DIM, GRANITE_LEN = 32, 8, 64, 2048
+# The backward against its plain version: phase 2's bf16 tolerance; in
+# float32 1e-4 (sums over 2,048 keys in another order).
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def attention_bwd_cases():
+    """(label, q shape, kv shape, dtype) of the backward kernel's phase."""
+    h, hkv, d, n = GRANITE_HEADS, GRANITE_KV_HEADS, GRANITE_DIM, GRANITE_LEN
+    return [
+        ("granite_bfloat16", (1, h, n, d), (1, hkv, n, d), torch.bfloat16),
+        ("granite_float32", (1, h, n, d), (1, hkv, n, d), torch.float32),
+        ("chunk_bfloat16", (1, ATTN_HEADS, ATTN_CHUNK, ATTN_DIM),
+         (1, ATTN_KV_HEADS, ATTN_CHUNK_KV, ATTN_DIM), torch.bfloat16),
+        ("d256_float32", (1, 4, 512, 256), (1, 2, 512, 256), torch.float32),
+    ]
+
+
+def attention_pairs(sq: int, skv: int) -> int:
+    """(query, key) pairs a causal head sees, the diagonal at the end of
+    the keys."""
+    return sum(max(0, min(skv, i + skv - sq + 1)) for i in range(sq))
+
+
+def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
+    """The backward kernel (``flash_attention_backward``, three device
+    functions a call) against ``ref.attention_backward`` on the same
+    inputs, the forward's output from the forward kernel.  Times: the
+    kernel, the plain version and the library's yardstick, SDPA's
+    backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` with ``enable_gqa``, its forward
+    run once outside the timing).  Bound: bytes (q, k, v, out, dout
+    read, dq, dk, dv written) or operations: 12·D a visible pair a
+    head, the products S (twice: the row's log-sum-exp, then P), dP,
+    dV, dK and dQ, at the dtype's peak."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        _bwd_path, flash_attention, flash_attention_backward)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for label, q_shape, kv_shape, dtype in attention_bwd_cases():
+        tol = BWD_TOL[dtype]
+        rate = HALF_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        b, h, sq, d = q_shape
+        skv = kv_shape[2]
+        q, k, v = attention_inputs(gen, dev, q_shape, kv_shape, dtype)
+        dout = torch.randn(q_shape, generator=gen, device=dev).to(dtype)
+        out = flash_attention(q, k, v, causal=True)
+        got = flash_attention_backward(q, k, v, out, dout, causal=True)
+        want = ref.attention_backward(q, k, v, dout, causal=True)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dtype and g.shape == w.shape,
+                  f"flash_attention_bwd {label}: {name} misshapen")
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                       atol=tol)
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        again = flash_attention_backward(q, k, v, out, dout, causal=True)
+        check(all(torch.equal(a, g) for a, g in zip(again, got)),
+              f"flash_attention_bwd {label}: two launches differ")
+        del got, want, again
+
+        def kernel():
+            return flash_attention_backward(q, k, v, out, dout, causal=True)
+
+        ms = time_ms(kernel, iters)
+        plain_ms = time_ms(lambda: ref.attention_backward(
+            q, k, v, dout, causal=True), iters)
+        mask = None
+        if 1 < sq != skv:
+            mask = (torch.arange(sq, device=dev)[:, None] + (skv - sq)
+                    >= torch.arange(skv, device=dev)[None, :])
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=sq == skv > 1,
+            enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, dout,
+                                       retain_graph=True)
+
+        lib_ms = time_ms(library, iters)
+        dev_ms = device_ms(kernel, iters)
+        pairs = attention_pairs(sq, skv)
+        n_ops = 12 * b * h * d * pairs
+        n_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
+        results[label] = dict(
+            shape=f"q{q_shape} kv{kv_shape} causal {dtype}",
+            path=_bwd_path(dtype, d),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by, n_ops=n_ops,
+            library="torch.autograd.grad through "
+                    "torch.nn.functional.scaled_dot_product_attention")
+        log(f"kernel flash_attention_bwd {label}: {results[label]}")
+        del q, k, v, dout, out, leaves, lib_out, mask
+        torch.cuda.empty_cache()
+    check(results["granite_bfloat16"]["path"] == "mma"
+          and results["granite_float32"]["path"] == "simt",
+          "flash_attention_bwd: a granite case off its path")
     return results
 
 
@@ -3596,7 +4070,9 @@ def main(argv=None) -> int:
     phases = {"segment_sum": segment_sum_phase(w, gen, args.iters, dev),
               "probe_counts": probe_counts_phase(w, gen, args.iters, dev),
               "hash_histogram": hash_histogram_phase(w, gen, args.iters, dev),
-              "flash_attention": flash_attention_phase(gen, args.iters, dev)}
+              "flash_attention": flash_attention_phase(gen, args.iters, dev),
+              "flash_attention_bwd": flash_attention_bwd_phase(
+                  gen, args.iters, dev)}
 
     launches, per_slot = run_main_path(w, dev)
     compiled, replays = run_compiled_path(w, dev)
@@ -3616,12 +4092,16 @@ def main(argv=None) -> int:
     phases["flash_attention"].update(lm_cases)
     for name, c in lm_counts.items():
         launches[name] += c
+    train_counts, _ = run_lm_training(args.seed, dev)
+    for name, c in train_counts.items():
+        launches[name] += c
 
     # The heaviest case of each kernel's path goes into the line; the
     # path's hash_histogram launches are all bucket_counts.
     headline = {"segment_sum": "final", "probe_counts": "one_round_join2",
                 "hash_histogram": "bucket_counts_cascade_hop2",
-                "flash_attention": "prefill_bfloat16"}
+                "flash_attention": "prefill_bfloat16",
+                "flash_attention_bwd": "granite_bfloat16"}
     kernels = []
     for name, meta in KERNELS.items():
         res = phases[name][headline[name]]

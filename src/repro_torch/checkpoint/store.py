@@ -1,9 +1,22 @@
-"""The partitioned relation store and cascade hop snapshots.
+"""Checkpoints: LM training state, the partitioned relation store and
+cascade hop snapshots.
 
-Port of the relation half of ``src/repro/checkpoint/store.py``, byte for
-byte on disk: the same format tags, partition-function name, manifest
-fields, npz member names and ``zlib.crc32`` over the same array bytes,
-so each package loads the other's stores.
+Port of ``src/repro/checkpoint/store.py``, byte for byte on disk: the
+same format tags, partition-function name, manifest fields, npz member
+names and ``zlib.crc32`` over the same array bytes, so each package
+loads the other's checkpoints and stores.
+
+* :func:`save` / :func:`restore` / :func:`latest_step` and
+  :class:`CheckpointManager` (async writer, ``keep_n`` retention): a
+  tree of tensors (parameters, ``OptState``) as ``<dir>/step_<n>/``,
+  ``arrays.npz`` with one ``leaf_<i>`` a leaf plus a fsynced
+  ``manifest.json`` (per-leaf CRC, shape and dtype name).  Leaves are
+  ordered as ``jax.tree.flatten`` orders them — dict keys sorted,
+  tuples and named tuples in field order — and a bfloat16 leaf is
+  stored as its ``uint16`` bits (through ``torch``'s ``view``: no
+  ``ml_dtypes``), so a checkpoint written by either package restores
+  in the other.  The manifest's ``treedef`` string differs between the
+  two; restore ignores it, as the reference does.
 
 * :func:`save_partitioned` / :func:`load_partitioned` persist a
   :class:`~repro_torch.core.partition.PartitionedRelation` as
@@ -31,13 +44,15 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import zlib
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import config
+from ..models.params import sorted_leaves
 
 
 class DataCorrupt(IOError):
@@ -163,6 +178,233 @@ def _crc(a: np.ndarray) -> int:
 def _tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a.astype(dtype)),
                            device=device)
+
+
+# ---------------------------------------------------------------------------
+# LM checkpoints: a tree of tensors a step
+# ---------------------------------------------------------------------------
+
+#: torch dtypes numpy has no type for: stored as raw bits of this width.
+_RAW = {torch.bfloat16: np.uint16, torch.float8_e4m3fn: np.uint8,
+        torch.float8_e5m2: np.uint8}
+_SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint8): np.uint8}
+
+
+def _is_named(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def _unflatten(like, leaf: Callable[[Any], Any]):
+    """``like``'s structure with each leaf ``x`` replaced by
+    ``leaf(x)``, called in :func:`_flatten`'s order."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        got = {k: _unflatten(like[k], leaf) for k in sorted(like)}
+        return {k: got[k] for k in like}
+    if _is_named(like):
+        return type(like)(*(_unflatten(v, leaf) for v in like))
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten(v, leaf) for v in like)
+    return leaf(like)
+
+
+def _structure(tree) -> str:
+    """The tree's structure, leaves as ``*``: the manifest's ``treedef``
+    (informational; restore reads ``like``)."""
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    if _is_named(tree):
+        return type(tree).__name__ + "(" + ", ".join(
+            f"{f}={_structure(v)}" for f, v in zip(tree._fields, tree)) + ")"
+    if isinstance(tree, (tuple, list)):
+        inner = ", ".join(_structure(v) for v in tree)
+        return f"({inner},)" if isinstance(tree, tuple) and len(tree) == 1 \
+            else (f"({inner})" if isinstance(tree, tuple) else f"[{inner}]")
+    return "*"
+
+
+def _host(x) -> Tuple[np.ndarray, str]:
+    """``(array to store, true dtype name)`` of a leaf: a tensor (any
+    device) or a numpy array.  A dtype numpy cannot hold is stored as its
+    raw bits; the bytes, and so the CRC, are the true array's."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        raw = _RAW.get(t.dtype)
+        if raw is not None:
+            width = torch.int16 if raw is np.uint16 else torch.uint8
+            return (t.contiguous().view(width).numpy().view(raw),
+                    str(t.dtype).split(".")[-1])
+        a = t.numpy()
+        return a, a.dtype.name
+    a = np.asarray(x)
+    if a.dtype.kind == "V" or a.dtype.name in ("bfloat16", "float8_e4m3fn",
+                                               "float8_e5m2"):
+        return a.view(np.uint8 if a.dtype.itemsize == 1 else np.uint16), \
+            a.dtype.name
+    return a, a.dtype.name
+
+
+def _from_stored(a: np.ndarray, true_dtype: str) -> torch.Tensor:
+    """A host tensor of the true dtype from a stored array."""
+    a = np.array(a, order="C")          # a writable copy; 0-d stays 0-d
+    if a.dtype.name != true_dtype:      # stored as a raw-bits view
+        bits = a.view(_SIGNED[a.dtype])
+        return torch.from_numpy(bits).view(getattr(torch, true_dtype))
+    return torch.from_numpy(a)
+
+
+def save(directory: str, step: int, tree, extra: Optional[dict] = None
+         ) -> str:
+    """Write ``tree`` (tensors on any device, or numpy arrays) as
+    ``<directory>/step_<step>/``, staged in ``step_<step>.tmp`` and
+    swapped in atomically."""
+    arrays = [_host(x) for x in sorted_leaves(tree)]
+    tmp = os.path.join(directory, f"step_{step}.tmp")
+    final = os.path.join(directory, f"step_{step}")
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(os.path.join(tmp, "arrays.npz"),
+             **{f"leaf_{i}": a for i, (a, _) in enumerate(arrays)})
+    manifest = {
+        "step": step,
+        "treedef": _structure(tree),
+        "n_leaves": len(arrays),
+        "crc": [_crc(a) for a, _ in arrays],
+        "shapes": [list(a.shape) for a, _ in arrays],
+        "dtypes": [name for _, name in arrays],
+        "extra": extra or {},
+    }
+    _write_manifest(tmp, manifest)
+    _atomic_replace(tmp, final)
+    return final
+
+
+def _checkpoint_intact(path: str, verify_crc: bool = True) -> bool:
+    """True iff a ``step_<n>`` directory is restorable: the manifest
+    parses, ``arrays.npz`` holds every leaf and (by default) every leaf
+    matches its CRC.  A torn directory is never the latest checkpoint."""
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        n = int(manifest["n_leaves"])
+        crcs = manifest["crc"]
+        with np.load(os.path.join(path, "arrays.npz")) as data:
+            for i in range(n):
+                a = data[f"leaf_{i}"]
+                if verify_crc and _crc(a) != crcs[i]:
+                    return False
+    except Exception:  # noqa: BLE001 — any defect means "not restorable"
+        return False
+    return True
+
+
+def _steps(directory: str) -> List[int]:
+    out = []
+    for name in os.listdir(directory):
+        if (name.startswith("step_") and not name.endswith(".tmp")
+                and not name.endswith(".old")):
+            try:
+                out.append(int(name.split("_")[1]))
+            except ValueError:
+                continue
+    return sorted(out)
+
+
+def latest_step(directory: str, *, verify: bool = True) -> Optional[int]:
+    """Newest *restorable* step under ``directory``: torn or corrupt step
+    directories are skipped, so a resuming trainer lands on one that
+    :func:`restore` reads.  ``verify=False`` skips the CRC pass."""
+    if not os.path.isdir(directory):
+        return None
+    _recover_replaced(directory)
+    for step in reversed(_steps(directory)):
+        if _checkpoint_intact(os.path.join(directory, f"step_{step}"),
+                              verify_crc=verify):
+            return step
+    return None
+
+
+def restore(directory: str, step: int, like) -> Tuple[Any, dict]:
+    """Restore into the structure of ``like``: each leaf checked against
+    its CRC (:class:`DataCorrupt`) and ``like``'s leaf's shape, then cast
+    to that leaf's dtype and put on its device."""
+    _recover_replaced(directory)
+    path = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    arrays = []
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for i in range(manifest["n_leaves"]):
+            a = data[f"leaf_{i}"]
+            if _crc(a) != manifest["crc"][i]:
+                raise DataCorrupt(f"checkpoint corruption in leaf {i} at "
+                                  f"{path}", path=path, detail=f"leaf_{i}")
+            arrays.append(_from_stored(a, manifest["dtypes"][i]))
+    n_like = len(sorted_leaves(like))
+    if n_like != len(arrays):
+        raise ValueError(f"leaf count mismatch: {n_like} vs {len(arrays)}")
+    it: Iterator[torch.Tensor] = iter(arrays)
+
+    def leaf(want):
+        got = next(it)
+        if tuple(want.shape) != tuple(got.shape):
+            raise ValueError(f"shape mismatch {tuple(want.shape)} vs "
+                             f"{tuple(got.shape)}")
+        return got.to(device=want.device, dtype=want.dtype)
+
+    return _unflatten(like, leaf), manifest["extra"]
+
+
+class CheckpointManager:
+    """``keep_n`` retention + optional async writes + preemption flush.
+    ``save`` copies the tree to the host on the caller's thread (the
+    caller may then update its tensors in place) and writes it on a
+    worker thread."""
+
+    def __init__(self, directory: str, keep_n: int = 3,
+                 async_write: bool = True):
+        self.directory = directory
+        self.keep_n = keep_n
+        self.async_write = async_write
+        self._pending: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    def save(self, step: int, tree, extra: Optional[dict] = None,
+             block: bool = False):
+        self.wait()
+        host_tree = _unflatten(tree, lambda t: t.detach().to(
+            "cpu", copy=True) if isinstance(t, torch.Tensor)
+            else np.array(t))
+
+        def work():
+            save(self.directory, step, host_tree, extra)
+            self._gc()
+
+        if self.async_write and not block:
+            self._pending = threading.Thread(target=work, daemon=True)
+            self._pending.start()
+        else:
+            work()
+
+    def wait(self):
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+
+    def restore_latest(self, like):
+        step = latest_step(self.directory)
+        if step is None:
+            return None, None, None
+        tree, extra = restore(self.directory, step, like)
+        return step, tree, extra
+
+    def _gc(self):
+        for s in _steps(self.directory)[:-self.keep_n]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
+                          ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Synthetic graph data (R-MAT, Zipf), made on the host with numpy."""
+"""Synthetic data made on the host with numpy: graphs (R-MAT, Zipf) and
+the token pipeline of LM training (``tokens.py``)."""

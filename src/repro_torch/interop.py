@@ -12,7 +12,10 @@ the two packages' partitioned stores share one format
 
 A language model's parameters cross as their tree (nested dicts,
 stacked layers on the leading axis) of numpy arrays, bit for bit
-(:func:`params_from_numpy`, :func:`params_to_numpy`).
+(:func:`params_from_numpy`, :func:`params_to_numpy`), and an
+optimizer's state as its ``(step, inner)`` fields
+(:func:`opt_state_from_numpy`, :func:`opt_state_to_numpy`), so both
+packages start a train step from the same state.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .core.executor import ChainCaps
 from .core.partition import PartitionedRelation, PartitionSpec
 from .core.relation import Relation
 from .models.params import tree_map
+from .optim import OptState
 
 
 def relation_from_numpy(cols: Mapping[str, np.ndarray], valid: np.ndarray,
@@ -105,3 +109,23 @@ def params_to_numpy(tree):
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy()
     return tree_map(one, tree)
+
+
+def opt_state_from_numpy(state, device) -> OptState:
+    """The port's :class:`~repro_torch.optim.OptState` from an object
+    with ``step`` and ``inner`` fields holding numpy arrays (the JAX
+    package's ``OptState`` through ``np.asarray``), on ``device``, bit
+    for bit: ``step`` an int32 0-d tensor, ``inner`` as
+    :func:`params_from_numpy` carries a tree."""
+    step = torch.as_tensor(np.array(state.step, dtype=np.int32),
+                           device=device)
+    return OptState(step, params_from_numpy(state.inner, device))
+
+
+def opt_state_to_numpy(state: OptState) -> OptState:
+    """The inverse of :func:`opt_state_from_numpy`: an ``OptState`` of
+    host numpy arrays (build the JAX package's from its two fields).
+    Copies, never views of a CPU tensor: an optimizer's update writes
+    its state's tensors in place."""
+    return OptState(np.array(state.step.detach().cpu().numpy()),
+                    tree_map(np.array, params_to_numpy(state.inner)))

@@ -31,6 +31,7 @@ _ATTN = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _LL, _LL, _P)
 _ATTN_WGMMA = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _P)
 _ATTN_SPLIT = (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL,
                _LL, _LL, _P)
+_ATTN_BWD = (_P,) * 10 + (_LL,) * 6 + (_F, _LL, _P)
 #: One library per ``csrc/<name>.cu``, and its C entry points:
 #: (pointers..., sizes..., stream) -> ``cudaGetLastError()`` as int.
 SIGNATURES = {
@@ -47,6 +48,8 @@ SIGNATURES = {
                         "flash_attention_wgmma_bf16": _ATTN_WGMMA,
                         "flash_attention_split_f32": _ATTN_SPLIT,
                         "flash_attention_split_bf16": _ATTN_SPLIT},
+    "flash_attention_bwd": {"flash_attention_bwd_f32": _ATTN_BWD,
+                            "flash_attention_bwd_bf16": _ATTN_BWD},
 }
 
 SOURCES = tuple(SIGNATURES)

@@ -14,7 +14,8 @@ CUDA):
 The entry points are ``segment_sum.segment_sum``,
 ``fused_join.probe_counts``, ``hash_partition.hash_histogram`` /
 ``bucket_counts`` and ``flash_attention.flash_attention`` (the JAX
-package's ``ops.flash_attention``).  :data:`LAUNCHES` counts each
+package's ``ops.flash_attention``; its gradient under autograd is the
+``flash_attention_bwd`` kernel).  :data:`LAUNCHES` counts each
 kernel's launches: a wrapper adds one where it launches its kernel.
 A CUDA-graph replay runs no wrapper; :func:`traced_launches` counts
 the launches that ran on the card from the profiler's device trace.
@@ -34,7 +35,8 @@ __all__ = ["KERNEL_SYMBOLS", "LAUNCHES", "reset_launches", "traced_launches"]
 #: The device functions of each kernel that its wrapper launches once a
 #: call (one of them, by path), as they appear in a device trace.  A
 #: second function of the same call (``segment_sum_fixup``,
-#: ``attention_combine``) is left out, so a trace counts in the unit of
+#: ``attention_combine``, the backward's ``attention_bwd_preprocess`` and
+#: ``attention_bwd_dq``) is left out, so a trace counts in the unit of
 #: :data:`LAUNCHES`.  Past 65,535 leading rows the per-block histogram
 #: and the attention kernels launch once per 65,535 rows (the grid's
 #: y limit), so there a trace counts more than the wrappers;
@@ -47,6 +49,7 @@ KERNEL_SYMBOLS = {
     "hash_histogram": ("hist_blocks", "bucket_totals", "bucket_totals_rows"),
     "flash_attention": ("flash_attention_kernel", "attention_wgmma",
                         "attention_split"),
+    "flash_attention_bwd": ("attention_bwd_dkdv",),
 }
 
 

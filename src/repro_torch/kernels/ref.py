@@ -95,3 +95,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs, vf).to(q.dtype)
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, causal: bool = True,
+                       scale: float | None = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: the gradient of :func:`attention` at (q, k, v)
+    for the output cotangent ``dout`` (B, Hq, Sq, D), computed in float32
+    with the same end-aligned causal mask and returned in the dtypes of
+    q, k and v.  dk and dv are summed over the Hq/Hkv query heads of each
+    kv head; a query row that sees no key gets, and gives, zero."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    g = hq // hkv
+    scale = scale if scale is not None else float(d) ** -0.5
+    qf = q.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(g, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=1)
+    dof = dout.to(torch.float32)
+    logits = torch.matmul(qf * scale, kf.transpose(-1, -2))
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        seen = qpos >= torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(~seen, float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        probs = torch.where(seen.any(-1)[:, None], probs, 0.0)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    dv = torch.matmul(probs.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dk = dk.view(b, hkv, g, skv, d).sum(2)
+    dv = dv.view(b, hkv, g, skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -15,7 +15,11 @@ Attention (:func:`multihead_attention`) has two backends, picked by
     which is the reference's mask exactly when the queries are the last
     positions seen: ``q_offset + Sq == kv_len`` (prefill and decode over
     a cache), or no cache, ``q_offset == 0`` and ``Sq == Skv``.  Any
-    other causal call raises on this path rather than fall back.
+    other causal call raises on this path rather than fall back.  Under
+    autograd its gradient is the ``flash_attention_bwd`` kernel
+    (``FlashAttentionFn``); the slices, transposes and casts around it
+    are ordinary differentiable ops, so every weight that reaches the
+    loss through attention gets its gradient.
   * the plain version — the reference's ``_sdpa_block`` with its chunked
     and naive branches, the same ``-1e30`` mask, float32 inside.  It
     runs on CPU tensors ("auto") and with ``backend="ref"``.

@@ -13,25 +13,35 @@ attention runs on the CUDA ``flash_attention`` kernel on the card and
 on the plain version on the CPU (``build_model(cfg, backend=...)``;
 ``models/layers.py``).
 
-This slice builds the dense family (ROADMAP A15a).  The other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them:
-moe A15c, ssm and hybrid A15d, encdec and vlm A15e; the loss's
-backward and training are A15b.
+The loss is differentiable end to end: on the card the attention's
+gradient is the ``flash_attention_bwd`` kernel
+(``kernels.flash_attention.FlashAttentionFn``).  With ``cfg.remat`` the
+train path (the loss, no cache) recomputes each block in the backward
+pass (``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint``; ``remat_policy="dots"`` keeps the products with no
+batch dims (the weight matmuls, ``aten.mm`` / ``aten.addmm``) and
+recomputes the rest, as ``dots_with_no_batch_dims_saveable`` does.
+
+This slice builds the dense family (ROADMAP A15a, A15b).  The other
+families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them: moe A15c, ssm and hybrid A15d, encdec and vlm A15e.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..distributed.sharding import Planner
 from ..kernels import _build
 from . import layers as L
 from .config import ModelConfig
 from .params import (ParamDef, abstract_params, axes_of, init_params,
-                     stack_layers, tree_map)
+                     stack_layers, tree_leaves, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +151,40 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers' views of a tree of stacked tensors, each leaf cut
+    by one ``unbind``: under autograd its backward stacks the layers'
+    gradients once, where a view per layer (``t[i]``) would add a
+    zero-filled stack-sized gradient per layer (O(n²) bytes)."""
+    leaves = tree_leaves(tree)
+    parts = [t.unbind(0) for t in leaves]
+
+    def layer(i):
+        it = iter([p[i] for p in parts])
+        return tree_map(lambda _: next(it), tree)
+
+    return [layer(i) for i in range(n)]
+
+
+#: The products a "dots" remat keeps: matmuls with no batch dims.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` recomputed in the backward pass (the reference's
+    ``jax.checkpoint`` with ``cfg.remat_policy``)."""
+    kw = dict(use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: ckpt.checkpoint(fn, *args, **kw)
+
+
 def build_decoder_lm(cfg: ModelConfig, backend: str = "auto") -> Model:
     """Uniform decoder stacks: the dense family."""
     if cfg.family == "moe":
@@ -160,11 +204,17 @@ def build_decoder_lm(cfg: ModelConfig, backend: str = "auto") -> Model:
         # recomputes them in every layer; the values are the same).
         angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta) \
             if cfg.pos == "rope" else None
-        for i in range(cfg.n_layers):
-            cache_l = None if caches is None else _layer(caches, i)
-            x, _ = _dense_block(_layer(params["blocks"], i), x, cfg, planner,
-                                positions, cache_l, cache_pos, backend,
-                                angles)
+
+        def block(p_l, h, cache_l=None):
+            return _dense_block(p_l, h, cfg, planner, positions, cache_l,
+                                cache_pos, backend, angles)[0]
+
+        # remat only on the train path (no cache), where a backward runs.
+        fn = _remat(cfg, block) if (cfg.remat and caches is None
+                                    and torch.is_grad_enabled()) else block
+        for i, p_l in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+            x = fn(p_l, x) if caches is None else fn(p_l, x,
+                                                     _layer(caches, i))
         return x
 
     def loss_fn(params, batch, planner):

@@ -48,6 +48,27 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_map2(fn: Callable, a, b):
+    """``fn(a_leaf, b_leaf)`` over two trees of ``a``'s structure."""
+    if isinstance(a, dict):
+        return {k: tree_map2(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(tree_map2(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+def sorted_leaves(tree) -> list:
+    """The leaves in ``jax.tree.flatten``'s order: dict keys sorted,
+    tuples, lists and named tuples in order; ``None`` holds no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in sorted_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in sorted_leaves(v)]
+    return [tree]
+
+
 def _device(device) -> torch.device:
     """The device of an entry point: the card unless the caller names
     another."""
