@@ -15,7 +15,8 @@ Phases, each failing the run on any error:
    every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together), the build seconds, each kernel's
    ``ptxas`` registers and spills, and the count of ``HGMMA`` (wgmma)
-   instructions in the built attention library, which must be nonzero.
+   instructions in the built attention libraries, forward and backward,
+   which must be nonzero.
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it: the max abs difference, the kernel's
    time, the plain version's, one PyTorch library call's for the same
@@ -36,14 +37,19 @@ Phases, each failing the run on any error:
    queries after 2,000 cached keys) and head dim 64 on the tensor
    cores, decode in bfloat16 and float32 split over the kv axis, and
    float32 prefill on the CUDA cores; each case logs the path ``_plan``
-   chose.  Phase 3j adds two cases at the model's shapes.
+   chose.  A granite-3-2b bf16 prefill (the train step's forward) joins
+   them, and every ``wgmma`` case is timed again with the lse store the
+   backward reads, that lse held to ``ref.attention_lse``.  Phase 3j
+   adds two cases at the model's shapes.
    ``flash_attention_bwd`` (the gradient, port-only: the JAX package
    differentiates its jnp attention) runs at granite-3-2b's attention
    as phase 3k's train step calls it (32 query heads over 8 kv heads,
    head dim 64, 2,048 positions, causal) in bfloat16 and float32, a
    ragged chunk at head dim 128 and head dim 256; each against
-   ``ref.attention_backward`` (2e-2 bf16, 1e-4 f32), two launches
-   bit-equal, with SDPA's backward as the library time.
+   ``ref.attention_backward`` (2e-2 bf16, 1e-4 f32), with the forward's
+   lse (timed: the train step's call) and recomputing it (timed too),
+   two launches bit-equal, with SDPA's backward as the library time;
+   the bf16 cases must take ``wgmma``.
 3. The main path at full size: R-MAT ``amazon`` at ``--scale`` (edge
    factor 3, a = 0.50), planned with ``chain_stats_exact`` and
    ``plan_chain(k=16)``, sized by ``default_chain_caps``, and run by
@@ -152,17 +158,21 @@ Phases, each failing the run on any error:
    ``--seed``, its bytes reckoned first and held to the card.  One
    microbatch's gradient (1 x 2,048 tokens) with the attention kernels
    against a ``backend="ref"`` model's: the cosine of the flattened
-   gradient (>= 0.99) and the lowest leaf cosine (logged).  Then
-   ``make_train_step`` with ``cosine_with_warmup(3e-4, 2, 8)`` on
+   gradient (>= 0.99) and the lowest leaf cosine (logged); the host µs
+   of granite's attention call forward and backward under autograd.
+   Then ``make_train_step`` with ``cosine_with_warmup(3e-4, 2, 8)`` on
    ``DataConfig(49155, 2048, 8)``: one warm-up step and 8 timed ones
    (CUDA events around each step), the counts set to 0 before the timed
    steps and read after (``flash_attention`` twice a layer a
    microbatch under remat, ``flash_attention_bwd`` once), every loss
    logged, the mean of the last two below the first; step ms against
-   the step's reckoned bound, tokens/s, peak bytes.  Then
-   ``Trainer.run`` at the smoke config on the card: 6 steps, a
+   the step's reckoned bound, tokens/s, peak bytes; a microbatch's and
+   the update's wall ms (median of 3) and device ms by kernel group.
+   Then ``Trainer.run`` at the smoke config on the card: 6 steps, a
    simulated failure at step 4, the restart from the step-3 checkpoint,
    the resumed losses within 1e-5 relative of an uninterrupted run.
+   ``--train-only`` runs this phase alone and prints its numbers as
+   JSON: a tree and its parent compared turn about on one card.
 6. One JSON line with every kernel's numbers (``flash_attention``'s
    launches include phase 3j's and 3k's), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -176,6 +186,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import tempfile
 import subprocess
@@ -2892,6 +2903,8 @@ SMOKE_STEPS, SMOKE_FAIL, SMOKE_EVERY = 6, 4, 2
 # backward (the embedding's gradient) sums with atomics on the card.
 SMOKE_RESUME_RTOL = 1e-5
 TRAIN_MARGIN = 4 << 30
+# Timed calls of a microbatch and of the update in the train profile.
+PROFILE_ITERS = 3
 
 
 def train_reckoning(cfg, n_params: int) -> tuple[float, str]:
@@ -2922,8 +2935,9 @@ def train_bound(cfg, n_params: int) -> tuple[float, str]:
     the blocks' weights run forward, again in the remat recompute, and
     backward (2 + 2 + 4 operations a weight), the lm_head forward and
     backward (6 a weight, on S - 1 positions); attention per layer and
-    sequence 4·D·Hq a visible pair forward, 4 again in the recompute,
-    8 backward; all at the bf16 tensor-core peak.  The embedding is a
+    sequence 4·D·Hq a visible pair forward (S, P·V), 4 again in the
+    recompute, 10 backward (S, dP, dV, dK, dQ: the recompute's forward
+    gives the lse); all at the bf16 tensor-core peak.  The embedding is a
     gather.  The bytes (weights read 3x, the optimizer's state read and
     written) are a small fraction of it."""
     hq, dh, nl = cfg.padded_heads, cfg.head_dim, cfg.n_layers
@@ -2932,13 +2946,13 @@ def train_bound(cfg, n_params: int) -> tuple[float, str]:
     seqs, s = TRAIN_BATCH, TRAIN_SEQ
     ops_blocks = 8 * blocks * seqs * s
     ops_head = 6 * head * seqs * (s - 1)
-    ops_attn = 16 * dh * hq * attention_pairs(s, s) * nl * seqs
+    ops_attn = 18 * dh * hq * attention_pairs(s, s) * nl * seqs
     n_ops = ops_blocks + ops_head + ops_attn
     n_bytes = 3 * 2 * n_params + (2 + 2 + 8 + 8 + 4 + 4) * n_params
     ms, by = bound_ms(n_bytes, n_ops, HALF_OPS_PER_S)
     return ms, (f"{by}: blocks 8 x {blocks} weights x {seqs * s} tokens = "
                 f"{ops_blocks:.4g}, lm_head 6 x {head} x {seqs * (s - 1)} = "
-                f"{ops_head:.4g}, attention 16 x D {dh} x Hq {hq} x "
+                f"{ops_head:.4g}, attention 18 x D {dh} x Hq {hq} x "
                 f"{attention_pairs(s, s)} pairs x {nl} layers x {seqs} = "
                 f"{ops_attn:.4g}; {n_ops:.4g} operations at 989 TFLOP/s; "
                 f"{n_bytes:.4g} bytes at 3.35 TB/s")
@@ -3042,8 +3056,9 @@ def lm_train_profile(model, planner, params, mb: dict, opt_state,
     parts = (("microbatch", lambda: compute_grads(model, planner, params,
                                                   mb, 1)),
              ("adamw update", lambda: opt_update(grads, opt_state, params)))
+    walls = {}
     for label, fn in parts:
-        wall = time_ms(fn, 1, warmup=1)
+        wall = walls[label] = time_ms(fn, PROFILE_ITERS, warmup=1)
         rows = device_kernels(fn, 1)
         groups: dict = {}
         for name, ms, n in rows:
@@ -3059,6 +3074,37 @@ def lm_train_profile(model, planner, params, mb: dict, opt_state,
             f"{n_kernels} kernels; device ms by group "
             f"{ {g: (round(t, 3), c) for g, (t, c) in groups.items()} }; "
             f"largest kernels {top}")
+    return walls
+
+
+def attention_host_us(dev, iters: int = 20) -> dict:
+    """Host µs of granite-3-2b's attention call as the train step makes
+    it: ``flash_attention`` under autograd (the forward, with the lse
+    store where its path has one) and ``torch.autograd.grad`` through it
+    (the backward), each from a synchronized card to the call's return
+    on the host's clock: the launches enqueued, not run.  Medians of
+    ``iters`` after two calls untimed."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    leaves = [t.requires_grad_() for t in attention_inputs(
+        gen, dev, (1, GRANITE_HEADS, GRANITE_LEN, GRANITE_DIM),
+        (1, GRANITE_KV_HEADS, GRANITE_LEN, GRANITE_DIM), torch.bfloat16)]
+    dout = torch.randn(leaves[0].shape, generator=gen,
+                       device=dev).bfloat16()
+    fwd, bwd = [], []
+    for _ in range(iters + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = flash_attention(*leaves, causal=True)
+        t1 = time.perf_counter()
+        torch.autograd.grad(out, leaves, dout)
+        t2 = time.perf_counter()
+        fwd.append((t1 - t0) * 1e6)
+        bwd.append((t2 - t1) * 1e6)
+    torch.cuda.synchronize()
+    return dict(forward_us=statistics.median(fwd[2:]),
+                backward_us=statistics.median(bwd[2:]))
 
 
 def run_lm_training(seed: int, device: torch.device) -> dict:
@@ -3137,6 +3183,9 @@ def run_lm_training(seed: int, device: torch.device) -> dict:
     del grads_k, grads_r, ref_model, loss_k, loss_r
     gc.collect()
     torch.cuda.empty_cache()
+    host = attention_host_us(device)
+    log(f"lm train attention host_us: {host} (granite's call under "
+        f"autograd, enqueue only, median of 20)")
 
     opt_init, opt_update, _ = make_optimizer(cfg.optimizer, cosine_with_warmup(
         TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL))
@@ -3192,8 +3241,8 @@ def run_lm_training(seed: int, device: torch.device) -> dict:
     # The update's cost does not depend on the values: zero gradients.
     grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=p.device), params)
-    lm_train_profile(model, planner, params, mb, opt_state, opt_update,
-                     grads)
+    walls = lm_train_profile(model, planner, params, mb, opt_state,
+                             opt_update, grads)
     del params, opt_state, model, grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -3203,7 +3252,9 @@ def run_lm_training(seed: int, device: torch.device) -> dict:
         counts[name] += c
     for name, c in run_smoke_trainer(seed, device).items():
         counts[name] += c
-    return counts, dict(step_ms=med, bound_ms=bound, peak=peak)
+    return counts, dict(step_ms=med, step_ms_all=step_ms, bound_ms=bound,
+                        peak=peak, microbatch_wall_ms=walls["microbatch"],
+                        **host)
 
 
 # ---------------------------------------------------------------------------
@@ -3478,6 +3529,10 @@ def attention_cases():
     bf16, f32 = torch.bfloat16, torch.float32
     return [
         ("prefill_bfloat16", (1, h, n, d), (1, hkv, n, d), bf16),
+        # The train step's forward (granite-3-2b), timed with and without
+        # the lse store its backward reads.
+        ("granite_bfloat16", (1, GRANITE_HEADS, GRANITE_LEN, GRANITE_DIM),
+         (1, GRANITE_KV_HEADS, GRANITE_LEN, GRANITE_DIM), bf16),
         ("chunk_bfloat16", (1, h, ATTN_CHUNK, d), (1, hkv, ATTN_CHUNK_KV, d),
          bf16),
         ("prefill_d64_bfloat16", (1, h, n, 64), (1, hkv, n, 64), bf16),
@@ -3527,7 +3582,8 @@ def hgmma_count(path: Path) -> int:
 def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import _plan, flash_attention
+    from repro_torch.kernels.flash_attention import (
+        _flash_attention_cuda, _plan, flash_attention)
 
     # The plain version's float32 products run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3566,6 +3622,23 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
         dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=True),
                            iters)
         lib_dev_ms = device_ms(library, iters)
+        with_lse = {}
+        if plan.path == "wgmma":
+            # The forward under autograd also stores each row's lse: the
+            # same call with the store, timed beside the one without.
+            def stored():
+                return _flash_attention_cuda(q, k, v, True, d ** -0.5, 128,
+                                             128, with_lse=True)
+
+            lse = stored()[1]
+            want_lse = ref.attention_lse(q, k, causal=True)
+            torch.testing.assert_close(lse, want_lse, rtol=LSE_TOL,
+                                       atol=LSE_TOL)
+            with_lse = dict(
+                ms_lse=time_ms(stored, iters),
+                device_ms_lse=device_ms(stored, iters),
+                lse_max_abs_err=float((lse - want_lse).abs().max()))
+            del lse, want_lse
         n_ops = 4 * b * h * d * attention_pairs(sq, skv)
         n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
@@ -3574,7 +3647,8 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
             path=plan.path, splits=plan.splits, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
             library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
-            library="torch.nn.functional.scaled_dot_product_attention")
+            library="torch.nn.functional.scaled_dot_product_attention",
+            **with_lse)
         log(f"kernel flash_attention {label}: {results[label]}")
         del q, k, v, got, want, mask
         torch.cuda.empty_cache()
@@ -3596,6 +3670,9 @@ GRANITE_HEADS, GRANITE_KV_HEADS, GRANITE_DIM, GRANITE_LEN = 32, 8, 64, 2048
 # The backward against its plain version: phase 2's bf16 tolerance; in
 # float32 1e-4 (sums over 2,048 keys in another order).
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The forward's lse (a log2, ~11 at 2,048 keys) against the plain one:
+# float32 sums in another order and the fast exp2 / log2.
+LSE_TOL = 1e-3
 
 
 def attention_bwd_cases():
@@ -3616,21 +3693,60 @@ def attention_pairs(sq: int, skv: int) -> int:
     return sum(max(0, min(skv, i + skv - sq + 1)) for i in range(sq))
 
 
+#: The backward's device functions, one launch each a call, by path;
+#: "wgmma" adds ``attention_bwd_slice_sum`` where it slices the heads.
+BWD_FUNCTIONS = {"wgmma": ("attention_bwd_delta", "attention_bwd_dq_wgmma",
+                           "attention_bwd_dkdv_wgmma"),
+                 "simt": ("attention_bwd_preprocess", "attention_bwd_dq",
+                          "attention_bwd_dkdv")}
+
+
+def bwd_device_split(fn, iters: int, want: tuple, what: str):
+    """Device ms a call of each backward device function that ``fn``
+    runs, from a trace of ``iters`` calls holding exactly ``iters``
+    records of each function in ``want``.  The profiler drops records
+    (ROADMAP C9): a trace that falls short is taken again, three times
+    at most (each short attempt logged and kept in ``TRACE_RETRIES``),
+    and None comes back if none was whole."""
+    for attempt in range(3):
+        split, records = {}, {}
+        for name, fn_ms, n in device_kernels(fn, iters):
+            m = re.search(r"attention_bwd_\w+", name)
+            key = m.group(0) if m else name[:40]
+            split[key] = split.get(key, 0.0) + fn_ms
+            records[key] = records.get(key, 0) + n
+        if all(records.get(f) == iters for f in want):
+            return split
+        log(f"trace: {what}: attempt {attempt} held records {records}, "
+            f"want {iters} of each of {list(want)}")
+        TRACE_RETRIES.append(f"{what} (attempt {attempt}: {records})")
+    return None
+
+
 def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
-    """The backward kernel (``flash_attention_backward``, three device
-    functions a call) against ``ref.attention_backward`` on the same
-    inputs, the forward's output from the forward kernel.  Times: the
-    kernel, the plain version and the library's yardstick, SDPA's
+    """The backward kernel (``flash_attention_backward``: on "wgmma"
+    three device functions a call, four with head slices — delta, dQ,
+    dK/dV, the slices' sum; on "simt" three) against
+    ``ref.attention_backward`` on the same inputs, the forward's output
+    and log-sum-exp from the forward kernel.  Times: the kernel as the
+    train step calls it, with the forward's lse (``ms``, ``device_ms``),
+    and recomputing the lse (``ms_recompute_lse``, held to the same
+    tolerance), the plain version and the library's yardstick, SDPA's
     backward (``torch.autograd.grad`` through
     ``scaled_dot_product_attention`` with ``enable_gqa``, its forward
-    run once outside the timing).  Bound: bytes (q, k, v, out, dout
-    read, dq, dk, dv written) or operations: 12·D a visible pair a
-    head, the products S (twice: the row's log-sum-exp, then P), dP,
-    dV, dK and dQ, at the dtype's peak."""
+    run once outside the timing).  ``device_ms`` and ``device_split``
+    come from a trace holding ``iters`` records of each of the path's
+    device functions (``bwd_device_split``), else they are None.
+    Bound: bytes (q, k, v, out, dout read, dq, dk, dv written) or
+    operations at the dtype's peak, a visible pair a head: given the
+    lse (``bound_ms``, where the forward stored one), 10·D, the products
+    S, dP, dV, dK and dQ; recomputing it (``bound_ms_recompute_lse``,
+    and ``bound_ms`` where the forward stored none), 12·D, S twice (the
+    row's lse, then P) — the same yardstick whichever path runs."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        _bwd_path, flash_attention, flash_attention_backward)
+        _bwd_plan, _flash_attention_cuda, flash_attention_backward)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     results = {}
@@ -3639,28 +3755,41 @@ def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
         rate = HALF_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         b, h, sq, d = q_shape
         skv = kv_shape[2]
+        hkv = kv_shape[1]
+        plan = _bwd_plan(b, h, hkv, sq, skv, d, dtype, True)
         q, k, v = attention_inputs(gen, dev, q_shape, kv_shape, dtype)
         dout = torch.randn(q_shape, generator=gen, device=dev).to(dtype)
-        out = flash_attention(q, k, v, causal=True)
-        got = flash_attention_backward(q, k, v, out, dout, causal=True)
+        out, lse = _flash_attention_cuda(q, k, v, True, d ** -0.5, 128, 128,
+                                         with_lse=True)
+        got = flash_attention_backward(q, k, v, out, dout, causal=True,
+                                       lse=lse)
+        recomputed = flash_attention_backward(q, k, v, out, dout,
+                                              causal=True)
         want = ref.attention_backward(q, k, v, dout, causal=True)
         torch.cuda.synchronize()
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            check(g.dtype == dtype and g.shape == w.shape,
-                  f"flash_attention_bwd {label}: {name} misshapen")
-            torch.testing.assert_close(g.float(), w.float(), rtol=tol,
-                                       atol=tol)
-        err = max(float((g.float() - w.float()).abs().max())
-                  for g, w in zip(got, want))
-        again = flash_attention_backward(q, k, v, out, dout, causal=True)
+        err = 0.0
+        for grads in (got, recomputed):
+            for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+                check(g.dtype == dtype and g.shape == w.shape,
+                      f"flash_attention_bwd {label}: {name} misshapen")
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+                err = max(err, float((g.float() - w.float()).abs().max()))
+        again = flash_attention_backward(q, k, v, out, dout, causal=True,
+                                         lse=lse)
         check(all(torch.equal(a, g) for a, g in zip(again, got)),
               f"flash_attention_bwd {label}: two launches differ")
-        del got, want, again
+        del got, want, again, recomputed
 
         def kernel():
+            return flash_attention_backward(q, k, v, out, dout, causal=True,
+                                            lse=lse)
+
+        def kernel_recompute():
             return flash_attention_backward(q, k, v, out, dout, causal=True)
 
         ms = time_ms(kernel, iters)
+        ms_recompute = time_ms(kernel_recompute, iters)
         plain_ms = time_ms(lambda: ref.attention_backward(
             q, k, v, dout, causal=True), iters)
         mask = None
@@ -3677,24 +3806,35 @@ def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
                                        retain_graph=True)
 
         lib_ms = time_ms(library, iters)
-        dev_ms = device_ms(kernel, iters)
+        want_fns = BWD_FUNCTIONS[plan.path] + (
+            ("attention_bwd_slice_sum",) if plan.slices > 1 else ())
+        split = bwd_device_split(kernel, iters, want_fns,
+                                 f"flash_attention_bwd {label}")
         pairs = attention_pairs(sq, skv)
-        n_ops = 12 * b * h * d * pairs
         n_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        n_ops_recompute = 12 * b * h * d * pairs
+        n_ops = n_ops_recompute if lse is None else 10 * b * h * d * pairs
         b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
         results[label] = dict(
             shape=f"q{q_shape} kv{kv_shape} causal {dtype}",
-            path=_bwd_path(dtype, d),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by, n_ops=n_ops,
+            path=plan.path, slices=plan.slices, ctas=plan.ctas,
+            max_abs_err=err, ms=ms, ms_recompute_lse=ms_recompute,
+            plain_ms=plain_ms, library_ms=lib_ms,
+            device_ms=None if split is None else sum(split.values()),
+            device_split=split,
+            library_device_ms=device_ms(library, iters), bound_ms=b_ms,
+            bound_by=b_by, n_ops=n_ops,
+            bound_ms_recompute_lse=bound_ms(n_bytes, n_ops_recompute,
+                                            rate)[0],
             library="torch.autograd.grad through "
                     "torch.nn.functional.scaled_dot_product_attention")
         log(f"kernel flash_attention_bwd {label}: {results[label]}")
-        del q, k, v, dout, out, leaves, lib_out, mask
+        del q, k, v, dout, out, lse, leaves, lib_out, mask
         torch.cuda.empty_cache()
-    check(results["granite_bfloat16"]["path"] == "mma"
+    check(results["granite_bfloat16"]["path"] == "wgmma"
+          and results["chunk_bfloat16"]["path"] == "wgmma"
           and results["granite_float32"]["path"] == "simt",
-          "flash_attention_bwd: a granite case off its path")
+          "flash_attention_bwd: a case off its path")
     return results
 
 
@@ -4035,6 +4175,10 @@ def main(argv=None) -> int:
                     help="also trace every main-path and SharesSkew run "
                          "once with torch.profiler and write the tables "
                          "to DIR")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phase 3k alone (building the attention "
+                         "kernels only) and print its numbers as JSON: "
+                         "to compare two trees' train steps, turn about")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4050,6 +4194,13 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
+    if args.train_only:
+        _build.build(("flash_attention", "flash_attention_bwd"))
+        log(f"build: {time.perf_counter() - t0:.1f} s")
+        counts, train = run_lm_training(args.seed, torch.device("cuda"))
+        print(json.dumps({"train": train, "launches": counts}))
+        print(card, flush=True)
+        return 0
     paths = _build.build()
     log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
@@ -4059,9 +4210,10 @@ def main(argv=None) -> int:
                 fn = line.split("Function properties for")[-1].strip()
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name} {fn}: {line.strip()}")
-    n_hgmma = hgmma_count(paths["flash_attention"])
-    log(f"sass flash_attention: {n_hgmma} HGMMA instructions")
-    check(n_hgmma > 0, "flash_attention: no HGMMA in the built library")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        n_hgmma = hgmma_count(paths[name])
+        log(f"sass {name}: {n_hgmma} HGMMA instructions")
+        check(n_hgmma > 0, f"{name}: no HGMMA in the built library")
 
     w = make_workload(args.scale, args.seed)
     dev = torch.device("cuda")

@@ -38,7 +38,11 @@
 //     diagonal tiles, and tiles above a warpgroup's band are skipped.
 //     The grid issues the last (heaviest causal) query tiles first and
 //     puts the query heads of one kv group side by side, so they share
-//     its K/V in L2.  The output is stored from registers.
+//     its K/V in L2.  The output is stored from registers.  Given an
+//     lse pointer (a forward under autograd), the epilogue also stores
+//     each row's log-sum-exp in base 2 of the scaled scores,
+//     m·scale·log2 e + log2 l (+inf for a row that sees no key), which
+//     the backward kernel reads.
 //   * "split" (both dtypes, Sq <= 16: decode and short chunks): grid
 //     (KV splits, B·Hkv, row blocks), launched per 65,535 kv heads.
 //     A CTA loads its chunk of one kv head's K/V once, for all
@@ -58,7 +62,7 @@
 //     here.
 //
 // A kernel that cannot launch returns its CUDA error; a tensor map that
-// cannot be encoded returns kNoEncoder or kBadTensorMap.
+// cannot be encoded returns hopper::kNoEncoder or kBadTensorMap.
 
 #include <algorithm>
 #include <cmath>
@@ -72,8 +76,6 @@
 
 namespace {
 
-constexpr int kNoEncoder = -1;     // cuTensorMapEncodeTiled not found
-constexpr int kBadTensorMap = -2;  // cuTensorMapEncodeTiled refused
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr long long kMaxGridY = 65535;   // grid.y limit: more rows, more launches
 
@@ -307,7 +309,7 @@ constexpr int kBK = 64;             // kv rows a tile
 constexpr int kStages = 2;          // (K, V) ring
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
-constexpr int kBox = 64;            // bf16 columns of one 128-byte box row
+constexpr int kBox = hopper::kBoxCols;   // bf16 columns of a box row
 constexpr uint32_t kAtom = 1024;    // 8 swizzled rows of 128 bytes
 
 template <int D>
@@ -328,8 +330,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
                 __grid_constant__ const CUtensorMap tm_k,
                 __grid_constant__ const CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, int hq, int hkv, int n_bh,
-                int sq, int skv, float scale_log2, int causal) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int lse_ld, int hq, int hkv, int n_bh, int sq, int skv,
+                float scale_log2, int causal) {
   using L = Layout<D>;
   constexpr int kAcc = D / 2;                 // accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -510,6 +513,14 @@ attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
   }
   const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
   const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+  if (lse != nullptr && lane % 4 == 0) {
+    // Rows of a head lse_ld apart; a row that saw no key has l = 0.
+    float* lb = lse + static_cast<long long>(bh) * lse_ld;
+    if (row0 < sq)
+      lb[row0] = l0 > 0.0f ? fmaf(m0, scale_log2, log2f(l0)) : INFINITY;
+    if (row0 + 8 < sq)
+      lb[row0 + 8] = l1 > 0.0f ? fmaf(m1, scale_log2, log2f(l1)) : INFINITY;
+  }
   __nv_bfloat16* ob = o + static_cast<long long>(bh) * sq * D;
 #pragma unroll
   for (int j = 0; j < kAcc / 4; ++j) {
@@ -773,65 +784,16 @@ attention_combine(const float* __restrict__ ws_acc,
 // Host side
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so
-// the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 (B·H, S, D) tensor as a 3-D map (D, S, B·H) with boxes of
-// (64, rows, 1) in the 128-byte swizzle; reads past S fill zeros.
-int bf16_map(CUtensorMap* map, const void* ptr, long long d, long long s,
-             long long bh, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d * 2),
-                                 static_cast<cuuint64_t>(s * d * 2)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(wg::kBox),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
-}
-
 template <int D>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                 const __nv_bfloat16* v, __nv_bfloat16* o, long long b,
-                 long long hq, long long hkv, long long sq, long long skv,
-                 float scale, long long causal, cudaStream_t stream) {
+                 const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                 long long lse_ld, long long b, long long hq, long long hkv,
+                 long long sq, long long skv, float scale, long long causal,
+                 cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
-  int rc = bf16_map(&tm_q, q, D, sq, b * hq, wg::kBQ);
-  if (rc == 0) rc = bf16_map(&tm_k, k, D, skv, b * hkv, wg::kBK);
-  if (rc == 0) rc = bf16_map(&tm_v, v, D, skv, b * hkv, wg::kBK);
+  int rc = hopper::bf16_map(&tm_q, q, D, sq, b * hq, wg::kBQ);
+  if (rc == 0) rc = hopper::bf16_map(&tm_k, k, D, skv, b * hkv, wg::kBK);
+  if (rc == 0) rc = hopper::bf16_map(&tm_v, v, D, skv, b * hkv, wg::kBK);
   if (rc != 0) return rc;
   auto kernel = wg::attention_wgmma<D>;
   const int smem = static_cast<int>(wg::Layout<D>::kBytes);
@@ -840,7 +802,8 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_qt = (sq + wg::kBQ - 1) / wg::kBQ;
   kernel<<<static_cast<unsigned>(n_qt * b * hq), wg::kThreads, smem,
-           stream>>>(tm_q, tm_k, tm_v, o, static_cast<int>(hq),
+           stream>>>(tm_q, tm_k, tm_v, o, lse, static_cast<int>(lse_ld),
+                     static_cast<int>(hq),
                      static_cast<int>(hkv), static_cast<int>(b * hq),
                      static_cast<int>(sq), static_cast<int>(skv),
                      scale * kLog2e, static_cast<int>(causal));
@@ -928,19 +891,22 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                              causal, bq, bk, stream);
 }
 
-// "wgmma": the bfloat16 prefill on the tensor cores.
+// "wgmma": the bfloat16 prefill on the tensor cores.  lse: null, or
+// float32 rows of lse_ld >= Sq a (batch, query head) for each row's
+// log-sum-exp (base 2 of the scaled scores).
 extern "C" int flash_attention_wgmma_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    __nv_bfloat16* o, long long b, long long hq, long long hkv, long long sq,
-    long long skv, long long d, float scale, long long causal, void* stream) {
+    __nv_bfloat16* o, float* lse, long long lse_ld, long long b,
+    long long hq, long long hkv, long long sq, long long skv, long long d,
+    float scale, long long causal, void* stream) {
   if (b == 0 || hq == 0 || sq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch_wgmma<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                            st);
+    return launch_wgmma<64>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,
+                            scale, causal, st);
   if (d == 128)
-    return launch_wgmma<128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                             st);
+    return launch_wgmma<128>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,
+                             scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -966,9 +932,5 @@ extern "C" int flash_attention_split_bf16(
 }
 
 extern "C" const char* kernel_error_string(int code) {
-  if (code == kNoEncoder)
-    return "cuTensorMapEncodeTiled not found through the runtime";
-  if (code == kBadTensorMap)
-    return "cuTensorMapEncodeTiled refused the tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

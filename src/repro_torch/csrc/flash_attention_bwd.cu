@@ -16,8 +16,10 @@
 //
 // Two paths, picked from the dtype and the head dim:
 //
-//   * "mma" — bfloat16 at head dims 64 and 128: two kernels on the
-//     tensor cores (warp-level mma.sync; see namespace tc below).
+//   * "wgmma" — bfloat16 at head dims 64 and 128: TMA-fed warpgroup
+//     products on the tensor cores, the log-sum-exp from the forward
+//     (or recomputed by the dQ kernel), a causally balanced dK/dV grid;
+//     see namespace wg below.
 //   * "simt" — every other call (float32, other head dims): three
 //     kernels on the CUDA cores in float32, launched in order on the
 //     caller's stream:
@@ -25,8 +27,8 @@
 //   (a) attention_bwd_preprocess — one CTA per (head, query tile):
 //       recomputes each row's log-sum-exp over its visible keys (the
 //       online max and sum of the forward, without the P·V product) and
-//       delta = rowsum(do ∘ o), both float32, into a workspace.  The
-//       three forward paths stay as they are: none writes an lse.
+//       delta = rowsum(do ∘ o), both float32, into a workspace.  Only
+//       the forward's "wgmma" path writes an lse.
 //   (b) attention_bwd_dq — one CTA per (head, query tile), walking the
 //       kv tiles up to the causal band: P = exp(S - lse), dP = do·Vᵀ,
 //       dS = P ∘ (dP - delta), dQ += scale · dS·K.
@@ -35,23 +37,29 @@
 //       see the kv tile: dV += Pᵀ·do, dK += scale · dSᵀ·Q.
 //
 // No atomics on either path: every output element is written once by
-// one CTA, so the gradient is the same bits on every run.  Bound on the
-// H100: operations (four products a visible (query, key) pair for the
-// gradient, S twice).  "simt" runs them on the CUDA cores in float32, a
-// 16 x 16 thread grid computing register micro-tiles from shared memory
+// one CTA (or, with "wgmma"'s head slices, summed from the slices'
+// partials in slice order), so the gradient is the same bits on every
+// run.  Bound on the H100: operations (seven products a visible (query,
+// key) pair on "wgmma" at D = 64, eight at D = 128 and on "simt").
+// "simt" runs them on the CUDA cores in float32, a 16 x 16 thread grid
+// computing register micro-tiles from shared memory
 // (rows padded by one float against bank conflicts); head dims:
 // instances at 32, 64, 128 and 256, a d between two taking the wider
 // instance with its columns past d read as zeros and not written; tiles
 // 64 x 64 up to D = 128 and 32 x 32 at 256 (shared memory).  Launches
-// are cut at 65,535 (batch, head) rows (the grid's y limit).
+// are cut at 65,535 (batch, head) rows (the grid's y limit).  A kernel
+// that cannot launch returns its CUDA error; a tensor map that cannot be
+// encoded returns hopper::kNoEncoder or kBadTensorMap.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -555,445 +563,897 @@ int launch_d(const T* q, const T* k, const T* v, const T* o, const T* dout,
 }
 
 // ---------------------------------------------------------------------------
-// "mma": bfloat16 at head dims 64 and 128 on the tensor cores (mma.sync)
+// "wgmma": bfloat16 at head dims 64 and 128 on the tensor cores, TMA-fed
 // ---------------------------------------------------------------------------
 //
-// Two kernels, four warps a CTA, each warp a strip of 16 rows, products
-// as warp-level mma.sync.m16n8k16 (bf16 in, float32 accumulate) from
-// bf16 tiles in shared memory (rows padded by 8 elements: the fragment
-// loads hit 32 distinct banks):
+// Every kernel of this path but the two small ones is a CTA of two
+// consumer warpgroups and one producer warpgroup, of which one thread
+// issues TMA loads into shared memory (the resident operands once, the
+// streamed ones into a three-stage ring signalled by full/empty mbarrier
+// pairs).  setmaxnreg moves registers between the warpgroups of a CTA,
+// within what the CTA was launched with (168 a thread at 384 threads):
+// the producer drops to 24 and the consumers rise to 240, what dK and
+// dV (D/2 floats each a thread) with Sᵀ and dPᵀ (32 each) need at
+// D = 128.  Tensor
+// maps are 3-D (D, S, B·H): a tile past Sq or Skv reads zeros inside its
+// own head; with the 128-byte swizzle a box row is at most 64 bf16, so a
+// D = 128 row is two boxes.  Every product is a wgmma: both operands in
+// shared memory (K-major) where both come from global memory, and the
+// first operand in registers where it is P or dS (an m64nN accumulator's
+// layout is the A operand's, so P and dS never touch shared memory),
+// with the second in shared memory as the MN-major B operand (the
+// transpose bit).  P and dS are rounded to bf16 for those products;
+// everything else stays float32.
 //
-//   * attention_bwd_dq_mma — one CTA per (head, 64 query rows).  delta =
-//     rowsum(do ∘ o); pass 1 over the live kv tiles: S = Q·Kᵀ and the
-//     online row max and sum, giving each row's log-sum-exp (base 2,
-//     into the workspace for the second kernel); pass 2: S and
-//     dP = dO·Vᵀ again, P = exp2(S·scale·log2 e - lse), dS = P ∘ (dP -
-//     delta), dQ += dS·K, dS rounded to bf16 in registers (the S
-//     accumulator's layout is the A operand's, so it never touches
-//     shared memory).
-//   * attention_bwd_dkdv_mma — one CTA per (kv head, 64 keys), walking
-//     the group's query heads and the query tiles that see its keys:
-//     Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with the keys as rows, so Pᵀ and dSᵀ
-//     are A operands in registers: dV += Pᵀ·dO, dK += dSᵀ·Q.
+// lse and delta are float32 rows of lse_ld (Sq rounded up to kLsePad) a
+// (batch, query head); the rows past Sq are never read as values (the
+// kernels mask them).  A call runs, in order on the caller's stream:
 //
-// P and dS are rounded to bf16 for the second products (what the
-// tensor cores take); everything else stays float32.
+//   (a) attention_bwd_delta — delta = rowsum(dO ∘ O), a warp a few rows,
+//       16 bytes a lane: bound by bytes, it reads O and dO once.
+//   (b) attention_bwd_dq_wgmma — one CTA per (batch·query head, 128
+//       query rows), Q and dO resident, a ring of (K, V) tiles of 64
+//       keys: S = Q·Kᵀ, dP = dO·Vᵀ,
+//       P = exp2(S·scale·log2 e − lse), dS = P ∘ (dP − delta),
+//       dQ += dS·K.  The last (heaviest causal)
+//       query tiles first, the query heads of one kv group side by side
+//       (they share its K/V in L2).  Without an lse from the forward
+//       (kLse), a first pass over the same tiles computes S alone and
+//       each row's online max and sum, and stores the lse for (c).
+//   (c) attention_bwd_dkdv_wgmma — one CTA per (key tile of 128,
+//       query-head slice, batch·kv head), K and V resident, 64 keys a
+//       warpgroup, a ring of (Q, dO, lse, delta) tiles of 64 query
+//       rows over the slice's heads and the query tiles that see its
+//       keys: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, Pᵀ and dSᵀ in registers,
+//       dV += Pᵀ·dO, dK += dSᵀ·Q.  At D = 128 dK and dV hold 128
+//       registers a thread, so the CTA walks its tiles twice: dV, then
+//       dK with Sᵀ recomputed.  Key tiles in order, so the first CTAs
+//       (whose keys the most query rows see) start first.  With one
+//       slice the CTA writes dK and dV; with more, each slice writes
+//       float32 partials to a workspace and
+//   (d) attention_bwd_slice_sum adds them in slice order into dK and dV.
+//
+// The wrapper's `_bwd_plan` picks the slices (a divisor of Hq/Hkv) and
+// `_bwd_ctas` lists (c)'s CTAs in this order.  Causal masks apply only on
+// tiles that straddle the diagonal or the end of Sq / Skv; tiles above
+// the band are skipped.  Seven products a visible (query, key) pair,
+// eight at D = 128.
 
-namespace tc {
+namespace wg {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;             // four warps
-constexpr int kRows = 64;                 // rows (queries or keys) a CTA
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_wait;
+using hopper::sw128_desc;
+
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kBox = hopper::kBoxCols;
+constexpr uint32_t kAtom = 1024;            // 8 swizzled rows of 128 bytes
+constexpr int kStages = 3;
+constexpr int kKeys = 128;     // (c): keys a CTA, 64 a warpgroup
+constexpr int kBQ = 64;        // (c): query rows a ring tile
+constexpr int kRows = 128;     // (b): query rows a CTA, 64 a warpgroup
+constexpr int kBK = 64;        // (b): keys a ring tile
+constexpr int kLsePad = 128;   // lse / delta rows padded to a multiple
 constexpr float kLog2e = 1.4426950408889634f;
+// setmaxnreg.inc waits until the CTA's own pool holds the registers it
+// asks for: a kernel built with fewer than 168 a thread would wait
+// forever, so it is not launched.
+constexpr int kRegisterBudget = -3;
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the special-function unit (the forward's exp2f, without its
+// denormal handling: probabilities below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-// Two floats as bf16, the first in the low half (the lower k index).
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows x D bf16 from a (.., D) tensor into shared memory with row stride
-// D + 8, 16 bytes a thread; rows past n_rows read zeros.
+// A shared-memory descriptor at base + offset, computed where it is
+// used: a loop-invariant descriptor hoisted out of the tile loop would
+// hold two registers for every k-step.
+__device__ __forceinline__ uint64_t desc_at(uint32_t base, uint32_t offset,
+                                            uint32_t lbo) {
+  uint32_t addr;
+  asm volatile("add.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(base), "r"(offset));
+  return sw128_desc(addr, lbo, kAtom);
+}
+
+// D (64 x N) (+)= A (64 x 16, registers) . B (16 x N, smem, MN-major),
+// N = D.
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row0, long long n_rows,
-                                          int rows) {
-  constexpr int V = D / 8;
-  for (int idx = threadIdx.x; idx < rows * V; idx += kThreads) {
-    const int r = idx / V, c = idx % V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = reinterpret_cast<const uint4*>(src + (row0 + r) * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = val;
+__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128) {
+    hopper::wgmma_m64n128k16_rs(acc, a, db, 1);
+  } else {
+    hopper::wgmma_m64n64k16_rs(acc, a, db, 1);
   }
 }
 
-// The A fragment of rows r0.. of a row-major shared tile, k columns
-// k0..k0+15 (lane: g = lane / 4, t = lane % 4).
-template <int ST>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* x,
-                                       int r0, int k0, int g, int t) {
-  a[0] = ld32(x + (r0 + g) * ST + k0 + 2 * t);
-  a[1] = ld32(x + (r0 + g + 8) * ST + k0 + 2 * t);
-  a[2] = ld32(x + (r0 + g) * ST + k0 + 8 + 2 * t);
-  a[3] = ld32(x + (r0 + g + 8) * ST + k0 + 8 + 2 * t);
+// X (64 x 64) = A (64 rows of D, K-major) . B (64 rows of D, K-major)ᵀ
+// over D in steps of 16: 32 bytes along a box row, then the next box;
+// a_half and b_half are the byte sizes of one box of each.
+template <int D>
+__device__ __forceinline__ void mma_ss(float (&x)[32], uint32_t a,
+                                       uint32_t a_half, uint32_t b,
+                                       uint32_t b_half) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t step = (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss(x, desc_at(a, (kk / 4) * a_half + step, 16),
+                               desc_at(b, (kk / 4) * b_half + step, 16),
+                               kk > 0);
+  }
 }
 
-// The A fragment (16 rows x k 16j..16j+15) from two n-tiles of a float
-// accumulator (the C layout of tiles 2j and 2j+1 is the A layout).
-__device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4],
-                                              const float (&c0)[4],
-                                              const float (&c1)[4]) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
+// acc (64 x D) += A (64 x 64, registers: a[4·kk ... 4·kk + 3] the k-step
+// kk) . B (64 rows of D, MN-major; boxes `half` bytes apart).
+template <int D>
+__device__ __forceinline__ void mma_rs_tile(float (&acc)[D / 2],
+                                            const uint32_t (&a)[16],
+                                            uint32_t b, uint32_t half) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                            a[4 * kk + 3]};
+    mma_rs<D>(acc, ak, desc_at(b, kk * 16 * 128, half));
+  }
 }
 
-// B fragments where B[k][n] = y[n][k] (y row-major: n rows, k columns).
-template <int ST>
-__device__ __forceinline__ void frag_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const bf16* y, int n0, int k0,
-                                          int g, int t) {
-  b0 = ld32(y + (n0 + g) * ST + k0 + 2 * t);
-  b1 = ld32(y + (n0 + g) * ST + k0 + 8 + 2 * t);
-}
-
-// B fragments where B[k][n] = z[k][n] (z row-major: k rows, n columns).
-template <int ST>
-__device__ __forceinline__ void frag_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const bf16* z, int k0, int n0,
-                                          int g, int t) {
-  const bf16* col = z + n0 + g;
-  b0 = pack(col[(k0 + 2 * t) * ST], col[(k0 + 2 * t + 1) * ST]);
-  b1 = pack(col[(k0 + 2 * t + 8) * ST], col[(k0 + 2 * t + 9) * ST]);
-}
+// ---------------------------------------------------------------------------
+// (a) delta = rowsum(dO ∘ O)
+// ---------------------------------------------------------------------------
 
 template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(bf16) * 4 * kRows * (D + 8) + sizeof(float) * kRows;
-}
-template <int D, int BQ>
-constexpr size_t dkdv_smem() {
-  return sizeof(bf16) * (2 * kRows + 2 * BQ) * (D + 8) +
-         sizeof(float) * 2 * BQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ o,
-                     const bf16* __restrict__ dout, float* __restrict__ lse2,
-                     float* __restrict__ delta, bf16* __restrict__ dq,
-                     int hq, int hkv, long long sq, long long skv,
-                     float scale, int causal) {
-  constexpr int BQ = kRows, BK = kRows, ST = D + 8;
-  constexpr int NK = BK / 8, ND = D / 8, KD = D / 16, KK = BK / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + BQ * ST;
-  bf16* ks = dos + BQ * ST;
-  bf16* vs = ks + BK * ST;
-  float* delta_s = reinterpret_cast<float*>(vs + BK * ST);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long q0 = static_cast<long long>(blockIdx.x) * BQ;
-  const long long bh = blockIdx.y;
-  const long long offset = skv - sq;
-  const long long kvh = kv_head(bh, hq, hkv);
-  const bf16* qb = q + bh * sq * D;
-  const bf16* ob = o + bh * sq * D;
-  const bf16* db = dout + bh * sq * D;
-  const bf16* kb = k + kvh * skv * D;
-  const bf16* vb = v + kvh * skv * D;
-
-  load_tile<D>(qs, qb, q0, sq, BQ);
-  load_tile<D>(dos, db, q0, sq, BQ);
-  {  // delta = rowsum(do ∘ o): two threads a row
-    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-    float acc = 0.0f;
-    if (q0 + r < sq)
-      for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
-        acc += __bfloat162float(ob[(q0 + r) * D + c]) *
-               __bfloat162float(db[(q0 + r) * D + c]);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      delta_s[r] = acc;
-      if (q0 + r < sq) delta[bh * sq + q0 + r] = acc;
+__global__ void __launch_bounds__(256)
+attention_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    float* __restrict__ delta, long long rows, int sq,
+                    int lse_ld) {
+  constexpr int kLanes = D / 8;                 // lanes a row, 8 bf16 each
+  const int lane = threadIdx.x % 32;
+  const long long warp = (static_cast<long long>(blockIdx.x) * 256
+                          + threadIdx.x) / 32;
+  const long long row = warp * (32 / kLanes) + lane / kLanes;
+  float acc = 0.0f;
+  if (row < rows) {
+    const long long at = row * D + (lane % kLanes) * 8;
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + at));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(dout + at));
+    const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc = fmaf(__uint_as_float(wa[i] << 16), __uint_as_float(wb[i] << 16),
+                 acc);
+      acc = fmaf(__uint_as_float(wa[i] & 0xffff0000u),
+                 __uint_as_float(wb[i] & 0xffff0000u), acc);
     }
+  }
+#pragma unroll
+  for (int x = kLanes / 2; x > 0; x >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, x);
+  if (row < rows && lane % kLanes == 0)
+    delta[(row / sq) * lse_ld + row % sq] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// (b) dQ
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqLayout {
+  static constexpr int kHalves = D / kBox;
+  static constexpr uint32_t kQHalf = kRows * 128;   // one box of Q or dO
+  static constexpr uint32_t kKHalf = kBK * 128;     // one box of K or V
+  static constexpr uint32_t kQ = kHalves * kQHalf;
+  static constexpr uint32_t kKV = kHalves * kKHalf;
+  static constexpr uint32_t kDO = kQ;
+  static constexpr uint32_t kK = 2 * kQ;                   // + stage · kKV
+  static constexpr uint32_t kV = kK + kStages * kKV;       // + stage · kKV
+  static constexpr uint32_t kBars = kV + kStages * kKV;    // 8 bytes each
+  static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + kAtom;
+};
+
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tm_q,
+                       __grid_constant__ const CUtensorMap tm_do,
+                       __grid_constant__ const CUtensorMap tm_k,
+                       __grid_constant__ const CUtensorMap tm_v,
+                       float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int hq, int hkv, int n_bh, int sq, int skv, int lse_ld,
+                       float scale, float scale_log2, int causal) {
+  using L = DqLayout<D>;
+  constexpr int kAcc = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + kAtom - 1)
+                        & ~(kAtom - 1);
+  const uint32_t s_q = base, s_do = base + L::kDO, s_k = base + L::kK,
+                 s_v = base + L::kV;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full = q_full + 8;                // + 8 · stage
+  const uint32_t empty = full + 8 * kStages;       // + 8 · stage
+
+  const int n_qt = (sq + kRows - 1) / kRows;
+  const int bh = blockIdx.x % n_bh;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_bh) * kRows;
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int offset = skv - sq;
+  const int n_kt = (skv + kBK - 1) / kBK;
+  int n_tiles = n_kt;
+  if (causal) {
+    const int last = min(q0 + kRows - 1, sq - 1) + offset;
+    n_tiles = last < 0 ? 0 : min(n_kt, last / kBK + 1);
+  }
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, kConsumers);
+    }
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  const int r0 = warp * 16;                  // this warp's rows in the tile
-  const long long qpos[2] = {q0 + r0 + g + offset, q0 + r0 + g + 8 + offset};
-  const float sl2 = scale * kLog2e;
-  const long long n_live = live_kv_tiles(q0, BQ, sq, skv, BK, causal);
-
-  // Pass 1: each row's log-sum-exp (base 2) over its visible keys.
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  for (long long kt = 0; kt < n_live; ++kt) {
-    const long long k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(ks, kb, k0, skv, BK);
-    __syncthreads();
-    float s[NK][4] = {};
+  if (tid >= kConsumers) {
+    // Producer: Q and dO once, then (K, V) tiles into the ring (twice
+    // over with kLse: the lse pass, then the gradient pass).
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      // The maps' boxes are kBQ rows (the dK/dV kernel's tile).
+      mbar_expect_tx(q_full, 2 * L::kQ);
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t a[4];
-      frag_a<ST>(a, qs, r0, kd * 16, g, t);
+      for (int h = 0; h < L::kHalves; ++h)
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t b0, b1;
-        frag_b_nk<ST>(b0, b1, ks, n * 8, kd * 16, g, t);
-        mma(s[n], a, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const long long kpos = k0 + n * 8 + 2 * t + e;
-          if (kpos < skv && (!causal || qpos[h] >= kpos))
-            mx = fmaxf(mx, s[n][2 * h + e] * sl2);
+        for (int r = 0; r < kRows; r += kBQ) {
+          const uint32_t at = h * L::kQHalf + r * 128;
+          hopper::tma_load_3d(s_q + at, &tm_q, q_full, h * kBox, q0 + r, bh);
+          hopper::tma_load_3d(s_do + at, &tm_do, q_full, h * kBox, q0 + r,
+                              bh);
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);
-      float sum = 0.0f;
+      const int n_loads = kLse ? 2 * n_tiles : n_tiles;
+      for (int i = 0; i < n_loads; ++i) {
+        const int kt = i < n_tiles ? i : i - n_tiles;
+        const int s = i % kStages, use = i / kStages;
+        if (use > 0) mbar_wait(empty + 8 * s, (use - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::kKV);
 #pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const long long kpos = k0 + n * 8 + 2 * t + e;
-          if (kpos < skv && (!causal || qpos[h] >= kpos))
-            sum += exp2f(s[n][2 * h + e] * sl2 - m_new);
+        for (int h = 0; h < L::kHalves; ++h) {
+          const uint32_t at = s * L::kKV + h * L::kKHalf;
+          hopper::tma_load_3d(s_k + at, &tm_k, full + 8 * s, h * kBox,
+                              kt * kBK, kvh);
+          hopper::tma_load_3d(s_v + at, &tm_v, full + 8 * s, h * kBox,
+                              kt * kBK, kvh);
         }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[h] = l[h] * exp2f(m[h] - m_new) + sum;
-      m[h] = m_new;
+      }
     }
-  }
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    row_lse[h] = l[h] > 0.0f ? m[h] + log2f(l[h]) : INFINITY;
-    row_delta[h] = delta_s[r];
-    if (t == 0 && q0 + r < sq) lse2[bh * sq + q0 + r] = row_lse[h];
-  }
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    // Warpgroup wg owns query rows q0 + 64·wg ... + 63; lane l of warp w
+    // in it owns rows r0 = 16·w + l/4 and r0 + 8 of those, and in every
+    // 8 columns of an accumulator the two at 2·(l % 4).
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;
+    const int pos0 = row0 + offset, pos1 = pos0 + 8;
+    const int wg_first = q0 + wg * 64 + offset;
+    const int wg_last = min(q0 + wg * 64 + 63, sq - 1) + offset;
+    const int col = 2 * (lane % 4);
+    const uint32_t s_qw = s_q + wg * 64 * 128, s_dow = s_do + wg * 64 * 128;
+    float* lb = lse + static_cast<long long>(bh) * lse_ld;
+    const float* db = delta + static_cast<long long>(bh) * lse_ld;
+    // A tile needs masks where it crosses Skv or the causal diagonal.
+    auto edge = [&](int k0) {
+      return k0 + kBK > skv || (causal && k0 + kBK - 1 > wg_first);
+    };
+    auto masked = [&](int kpos, int pos) {
+      return kpos >= skv || (causal && kpos > pos);
+    };
 
-  // Pass 2: dQ += dS·K.
-  float acc[ND][4] = {};
-  for (long long kt = 0; kt < n_live; ++kt) {
-    const long long k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(ks, kb, k0, skv, BK);
-    load_tile<D>(vs, vb, k0, skv, BK);
-    __syncthreads();
-    float s[NK][4] = {}, dp[NK][4] = {};
+    mbar_wait(q_full, 0);
+    int i = 0;                                    // ring tiles consumed
+    float lse0, lse1;
+    if constexpr (kLse) {
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+      for (int kt = 0; kt < n_tiles; ++kt, ++i) {
+        const int s = i % kStages;
+        mbar_wait(full + 8 * s, (i / kStages) & 1);
+        const int k0 = kt * kBK;
+        if (!causal || k0 <= wg_last) {
+          float sc[32];
+          hopper::wgmma_fence();
+          mma_ss<D>(sc, s_qw, L::kQHalf, s_k + s * L::kKV, L::kKHalf);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait_all();
+          hopper::fence_regs(sc);
+          if (edge(k0)) {
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t aq[4], ad[4];
-      frag_a<ST>(aq, qs, r0, kd * 16, g, t);
-      frag_a<ST>(ad, dos, r0, kd * 16, g, t);
+            for (int x = 0; x < 32; ++x)
+              if (masked(k0 + 8 * (x / 4) + col + (x & 1),
+                         (x & 2) ? pos1 : pos0))
+                sc[x] = -INFINITY;
+          }
+          float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t b0, b1;
-        frag_b_nk<ST>(b0, b1, ks, n * 8, kd * 16, g, t);
-        mma(s[n], aq, b0, b1);
-        frag_b_nk<ST>(b0, b1, vs, n * 8, kd * 16, g, t);
-        mma(dp[n], ad, b0, b1);
+          for (int j = 0; j < 8; ++j) {
+            mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+            mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+          }
+#pragma unroll
+          for (int x = 1; x <= 2; x <<= 1) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+          }
+          // A row that has seen no key keeps max −inf: shift by 0.
+          const float b0 = mx0 == -INFINITY ? 0.0f : mx0 * scale_log2;
+          const float b1 = mx1 == -INFINITY ? 0.0f : mx1 * scale_log2;
+          l0 *= ex2(fmaf(m0, scale_log2, -b0));
+          l1 *= ex2(fmaf(m1, scale_log2, -b1));
+          m0 = mx0;
+          m1 = mx1;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            l0 += ex2(fmaf(sc[4 * j], scale_log2, -b0))
+                  + ex2(fmaf(sc[4 * j + 1], scale_log2, -b0));
+            l1 += ex2(fmaf(sc[4 * j + 2], scale_log2, -b1))
+                  + ex2(fmaf(sc[4 * j + 3], scale_log2, -b1));
+          }
+        }
+        mbar_arrive(empty + 8 * s);
       }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+      }
+      lse0 = l0 > 0.0f ? fmaf(m0, scale_log2, log2f(l0)) : INFINITY;
+      lse1 = l1 > 0.0f ? fmaf(m1, scale_log2, log2f(l1)) : INFINITY;
+      if (lane % 4 == 0) {
+        if (row0 < sq) lb[row0] = lse0;
+        if (row0 + 8 < sq) lb[row0 + 8] = lse1;
+      }
+    } else {
+      lse0 = lb[row0];
+      lse1 = lb[row0 + 8];
     }
+    const float delta0 = db[row0], delta1 = db[row0 + 8];
+
+    float acc[kAcc];
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int x = 0; x < kAcc; ++x) acc[x] = 0.0f;
+    for (int kt = 0; kt < n_tiles; ++kt, ++i) {
+      const int s = i % kStages;
+      mbar_wait(full + 8 * s, (i / kStages) & 1);
+      const int k0 = kt * kBK;
+      if (!causal || k0 <= wg_last) {
+        float sc[32], dp[32];
+        hopper::wgmma_fence();
+        mma_ss<D>(sc, s_qw, L::kQHalf, s_k + s * L::kKV, L::kKHalf);
+        mma_ss<D>(dp, s_dow, L::kQHalf, s_v + s * L::kKV, L::kKHalf);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_all();
+        hopper::fence_regs(sc);
+        hopper::fence_regs(dp);
+        const bool on_edge = edge(k0);
+        uint32_t ds[16];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i / 2;
-        const long long kpos = k0 + n * 8 + 2 * t + (i & 1);
-        const bool ok = kpos < skv && (!causal || qpos[h] >= kpos);
-        const float p = ok ? exp2f(s[n][i] * sl2 - row_lse[h]) : 0.0f;
-        s[n][i] = p * (dp[n][i] - row_delta[h]);       // dS
+        for (int j = 0; j < 8; ++j) {
+          float e[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const bool hi = x & 2;
+            const float p = ex2(fmaf(sc[4 * j + x], scale_log2,
+                                       -(hi ? lse1 : lse0)));
+            e[x] = on_edge && masked(k0 + 8 * j + col + (x & 1),
+                                     hi ? pos1 : pos0)
+                       ? 0.0f
+                       : p * (dp[4 * j + x] - (hi ? delta1 : delta0));
+          }
+          ds[2 * j] = pack(e[0], e[1]);
+          ds[2 * j + 1] = pack(e[2], e[3]);
+        }
+        // dQ += dS·K: K as the MN-major B operand (its boxes kKHalf
+        // apart).
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        mma_rs_tile<D>(acc, ds, s_k + s * L::kKV, L::kKHalf);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_all();
+        hopper::fence_regs(acc);
       }
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      uint32_t a[4];
-      frag_from_acc(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        frag_b_kn<ST>(b0, b1, ks, kk * 16, nd * 8, g, t);
-        mma(acc[nd], a, b0, b1);
-      }
+      mbar_arrive(empty + 8 * s);
     }
-  }
+
+    bf16* out = dq + static_cast<long long>(bh) * sq * D;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long row = q0 + r0 + g + 8 * h;
-    if (row >= sq) continue;
-    bf16* out = dq + (bh * sq + row) * D;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(out + nd * 8 + 2 * t) =
-          pack(acc[nd][2 * h] * scale, acc[nd][2 * h + 1] * scale);
+    for (int j = 0; j < kAcc / 4; ++j) {
+      const int c = 8 * j + col;
+      if (row0 < sq)
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row0) * D
+                                     + c) =
+            pack(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+      if (row0 + 8 < sq)
+        *reinterpret_cast<uint32_t*>(
+            out + static_cast<long long>(row0 + 8) * D + c) =
+            pack(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    }
   }
 }
 
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse2,
-                       const float* __restrict__ delta,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, int hq,
-                       int hkv, long long sq, long long skv, float scale,
-                       int causal) {
-  constexpr int BK = kRows, ST = D + 8;
-  constexpr int NQ = BQ / 8, ND = D / 8, KD = D / 16, KQ = BQ / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BK * ST;
-  bf16* qs = vs + BK * ST;
-  bf16* dos = qs + BQ * ST;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * ST);
-  float* delta_s = lse_s + BQ;
+// ---------------------------------------------------------------------------
+// (c) dK, dV
+// ---------------------------------------------------------------------------
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long k0 = static_cast<long long>(blockIdx.x) * BK;
-  const long long bkv = blockIdx.y;
-  const long long batch = bkv / hkv, kvh = bkv % hkv;
-  const int group = hq / hkv;
-  const long long offset = skv - sq;
-  const int r0 = warp * 16;                  // this warp's keys in the tile
-  const long long kpos[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  const float sl2 = scale * kLog2e;
+template <int D>
+struct DkdvLayout {
+  static constexpr int kHalves = D / kBox;
+  static constexpr uint32_t kKHalf = kKeys * 128;   // one box of K or V
+  static constexpr uint32_t kQHalf = kBQ * 128;     // one box of Q or dO
+  static constexpr uint32_t kKV = kHalves * kKHalf;
+  static constexpr uint32_t kQ = kHalves * kQHalf;
+  static constexpr uint32_t kV = kKV;
+  static constexpr uint32_t kQs = 2 * kKV;                    // + stage · kQ
+  static constexpr uint32_t kDO = kQs + kStages * kQ;         // + stage · kQ
+  static constexpr uint32_t kStat = kBQ * 4;                  // lse or delta
+  static constexpr uint32_t kLse = kDO + kStages * kQ;        // + stage · 256
+  static constexpr uint32_t kDelta = kLse + kStages * kStat;  // + stage · 256
+  static constexpr uint32_t kBars = kDelta + kStages * kStat;
+  static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + kAtom;
+};
 
-  load_tile<D>(ks, k + bkv * skv * D, k0, skv, BK);
-  load_tile<D>(vs, v + bkv * skv * D, k0, skv, BK);
-
-  float acc_k[ND][4] = {}, acc_v[ND][4] = {};
-  const long long n_qt = (sq + BQ - 1) / BQ;
-  long long qt0 = 0;
-  if (causal) {
-    const long long first = k0 - offset;
-    qt0 = first <= 0 ? 0 : first / BQ;
-  }
-  for (int gh = 0; gh < group; ++gh) {
-    const long long bh = batch * hq + kvh * group + gh;
-    for (long long qt = qt0; qt < n_qt; ++qt) {
-      const long long q0 = qt * BQ;
-      __syncthreads();
-      load_tile<D>(qs, q + bh * sq * D, q0, sq, BQ);
-      load_tile<D>(dos, dout + bh * sq * D, q0, sq, BQ);
-      for (int r = threadIdx.x; r < BQ; r += kThreads) {
-        const bool in = q0 + r < sq;
-        lse_s[r] = in ? lse2[bh * sq + q0 + r] : INFINITY;
-        delta_s[r] = in ? delta[bh * sq + q0 + r] : 0.0f;
-      }
-      __syncthreads();
-      float s[NQ][4] = {}, dp[NQ][4] = {};
+// Pᵀ of one ring tile (this warpgroup's 64 keys x the tile's 64 query
+// rows) in bf16 registers, in the A operand's layout: Sᵀ = K·Qᵀ, then
+// exp2(Sᵀ·scale·log2 e − lse).  Where the tile crosses Sq or the causal
+// diagonal (on_edge), masked elements are 0 and their bits set in off
+// (keys past Skv only feed rows of dK and dV that are not written).
+template <int D>
+__device__ __forceinline__ void dkdv_probs(uint32_t (&p)[16], uint32_t& off,
+                                           uint32_t s_kw, uint32_t s_qt,
+                                           const float* lt, int q0, int key0,
+                                           int col, int sq, int offset,
+                                           int causal, bool on_edge,
+                                           float scale_log2) {
+  using L = DkdvLayout<D>;
+  float st[32];
+  hopper::wgmma_fence();
+  mma_ss<D>(st, s_kw, L::kKHalf, s_qt, L::kQHalf);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait_all();
+  hopper::fence_regs(st);
+  off = 0;
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        uint32_t ak[4], av[4];
-        frag_a<ST>(ak, ks, r0, kd * 16, g, t);
-        frag_a<ST>(av, vs, r0, kd * 16, g, t);
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + col;
+    const float2 l2 = *reinterpret_cast<const float2*>(lt + c);
+    float e[4];
 #pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t b0, b1;
-          frag_b_nk<ST>(b0, b1, qs, n * 8, kd * 16, g, t);
-          mma(s[n], ak, b0, b1);
-          frag_b_nk<ST>(b0, b1, dos, n * 8, kd * 16, g, t);
-          mma(dp[n], av, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = n * 8 + 2 * t + (i & 1);
-          const long long qp = q0 + col + offset;
-          const long long kp = kpos[i / 2];
-          const bool ok = kp < skv && (!causal || qp >= kp);
-          const float p = ok ? exp2f(s[n][i] * sl2 - lse_s[col]) : 0.0f;
-          s[n][i] = p;                                   // Pᵀ
-          dp[n][i] = p * (dp[n][i] - delta_s[col]);       // dSᵀ
-        }
-#pragma unroll
-      for (int kq = 0; kq < KQ; ++kq) {
-        uint32_t ap[4], ads[4];
-        frag_from_acc(ap, s[2 * kq], s[2 * kq + 1]);
-        frag_from_acc(ads, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          uint32_t b0, b1;
-          frag_b_kn<ST>(b0, b1, dos, kq * 16, nd * 8, g, t);
-          mma(acc_v[nd], ap, b0, b1);
-          frag_b_kn<ST>(b0, b1, qs, kq * 16, nd * 8, g, t);
-          mma(acc_k[nd], ads, b0, b1);
-        }
-      }
+    for (int x = 0; x < 4; ++x) {
+      const int qi = q0 + c + (x & 1);
+      if (on_edge && (qi >= sq
+                      || (causal && qi + offset < key0 + (x & 2) * 4)))
+        off |= 1u << (4 * j + x);
+      e[x] = off >> (4 * j + x) & 1
+                 ? 0.0f
+                 : ex2(fmaf(st[4 * j + x], scale_log2,
+                            -((x & 1) ? l2.y : l2.x)));
     }
+    p[2 * j] = pack(e[0], e[1]);
+    p[2 * j + 1] = pack(e[2], e[3]);
   }
+}
+
+// dSᵀ = Pᵀ ∘ (dPᵀ − delta) in bf16 registers, from the bf16 Pᵀ.
+__device__ __forceinline__ void dkdv_dscores(uint32_t (&ds)[16],
+                                             const float (&dpt)[32],
+                                             const uint32_t (&p)[16],
+                                             uint32_t off, const float* dt,
+                                             int col) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long row = kpos[h];
-    if (row >= skv) continue;
-    bf16* outk = dk + (bkv * skv + row) * D;
-    bf16* outv = dv + (bkv * skv + row) * D;
+  for (int j = 0; j < 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * j + col);
+    float f[4];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      *reinterpret_cast<uint32_t*>(outk + nd * 8 + 2 * t) =
-          pack(acc_k[nd][2 * h] * scale, acc_k[nd][2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(outv + nd * 8 + 2 * t) =
-          pack(acc_v[nd][2 * h], acc_v[nd][2 * h + 1]);
+    for (int x = 0; x < 4; ++x) {
+      const uint32_t w = p[2 * j + x / 2];
+      const float pv = __uint_as_float((x & 1) ? w & 0xffff0000u : w << 16);
+      f[x] = off >> (4 * j + x) & 1
+                 ? 0.0f
+                 : pv * (dpt[4 * j + x] - ((x & 1) ? d2.y : d2.x));
+    }
+    ds[2 * j] = pack(f[0], f[1]);
+    ds[2 * j + 1] = pack(f[2], f[3]);
+  }
+}
+
+// A warpgroup's dK or dV rows (keys key0 and key0 + 8 a lane) times
+// `mul`: in bf16 to `out` with one slice, else as float32 partials to
+// the workspace, slice-major (part 0 dK's, part 1 dV's), summed by (d).
+template <int D>
+__device__ __forceinline__ void dkdv_store(const float (&acc)[D / 2],
+                                           bf16* out, float* ws, int part,
+                                           int slice, int slices, int n_bkv,
+                                           int bkv, int skv, int key0,
+                                           int col, float mul) {
+  const long long n = static_cast<long long>(n_bkv) * skv * D;
+  const long long head = static_cast<long long>(bkv) * skv * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + 8 * h;
+      if (key >= skv) continue;
+      const long long at = head + static_cast<long long>(key) * D + 8 * j
+                           + col;
+      const float x0 = acc[4 * j + 2 * h] * mul;
+      const float x1 = acc[4 * j + 2 * h + 1] * mul;
+      if (slices == 1)
+        *reinterpret_cast<uint32_t*>(out + at) = pack(x0, x1);
+      else
+        *reinterpret_cast<float2*>(ws + (2 * slice + part) * n + at) =
+            make_float2(x0, x1);
     }
   }
 }
 
 template <int D>
-int launch_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-               const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* lse2,
-               float* delta, long long b, long long hq, long long hkv,
-               long long sq, long long skv, float scale, long long causal,
-               cudaStream_t stream) {
-  constexpr int BQ = D <= 64 ? 64 : 32;      // dkdv's query tile
-  auto kdq = attention_bwd_dq_mma<D>;
-  auto kdkdv = attention_bwd_dkdv_mma<D, BQ>;
-  cudaError_t err = allow_smem(kdq, dq_smem<D>());
-  if (err == cudaSuccess) err = allow_smem(kdkdv, dkdv_smem<D, BQ>());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ih = static_cast<int>(hq), ik = static_cast<int>(hkv);
-  const int ic = static_cast<int>(causal);
-  const long long step = std::max(1LL, kMaxGridY / hq);
-  for (long long b0 = 0; b0 < b; b0 += step) {
-    const long long nb = std::min(step, b - b0);
-    const long long qoff = b0 * hq * sq * D, koff = b0 * hkv * skv * D;
-    const long long roff = b0 * hq * sq;
-    const dim3 qgrid(static_cast<unsigned>((sq + kRows - 1) / kRows),
-                     static_cast<unsigned>(nb * hq));
-    const dim3 kgrid(static_cast<unsigned>((skv + kRows - 1) / kRows),
-                     static_cast<unsigned>(nb * hkv));
-    kdq<<<qgrid, kThreads, dq_smem<D>(), stream>>>(
-        q + qoff, k + koff, v + koff, o + qoff, dout + qoff, lse2 + roff,
-        delta + roff, dq + qoff, ih, ik, sq, skv, scale, ic);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kdkdv<<<kgrid, kThreads, dkdv_smem<D, BQ>(), stream>>>(
-        q + qoff, k + koff, v + koff, dout + qoff, lse2 + roff,
-        delta + roff, dk + koff, dv + koff, ih, ik, sq, skv, scale, ic);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tm_q,
+                         __grid_constant__ const CUtensorMap tm_do,
+                         __grid_constant__ const CUtensorMap tm_k,
+                         __grid_constant__ const CUtensorMap tm_v,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         float* __restrict__ ws, int hq, int hkv, int n_bkv,
+                         int sq, int skv, int lse_ld, int slices, float scale,
+                         float scale_log2, int causal) {
+  using L = DkdvLayout<D>;
+  constexpr int kAcc = D / 2;
+  // At D = 128, dK and dV (64 floats each a thread) and a tile's Sᵀ and
+  // dPᵀ do not fit in a consumer's registers together: two passes over
+  // the query tiles, dV then dK, the second recomputing Sᵀ.
+  constexpr int kPasses = D == 128 ? 2 : 1;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtom - 1) & ~(kAtom - 1);
+  const uint32_t s_k = base, s_v = base + L::kV, s_q = base + L::kQs,
+                 s_do = base + L::kDO, s_lse = base + L::kLse,
+                 s_delta = base + L::kDelta;
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t full = kv_full + 8;               // + 8 · stage
+  const uint32_t empty = full + 8 * kStages;       // + 8 · stage
+
+  // CTA -> (key tile, slice, batch·kv head), key tiles in order
+  // (`_bwd_ctas` lists the same order).
+  const int bkv = blockIdx.x % n_bkv;
+  const int slice = (blockIdx.x / n_bkv) % slices;
+  const int k0 = (blockIdx.x / n_bkv / slices) * kKeys;
+  const int group = hq / hkv, per = group / slices;
+  const int g0 = slice * per;
+  const int b = bkv / hkv, kvh = bkv % hkv;
+  const int offset = skv - sq;
+  // The query tiles that see key k0: row i sees it iff i + offset >= k0.
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  int qt0 = 0;
+  if (causal) {
+    const int first = k0 - offset;
+    qt0 = first <= 0 ? 0 : min(n_qt, first / kBQ);
   }
-  return 0;
+  const int n_q = n_qt - qt0;
+  const int n_steps = per * n_q;                   // a pass
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, kConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer: K and V once, then (Q, dO, lse, delta) tiles of the
+    // slice's heads into the ring, once a pass.
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      // The maps' boxes are kBK keys (the dQ kernel's tile).
+      mbar_expect_tx(kv_full, 2 * L::kKV);
+#pragma unroll
+      for (int h = 0; h < L::kHalves; ++h)
+#pragma unroll
+        for (int r = 0; r < kKeys; r += kBK) {
+          const uint32_t at = h * L::kKHalf + r * 128;
+          hopper::tma_load_3d(s_k + at, &tm_k, kv_full, h * kBox, k0 + r,
+                              bkv);
+          hopper::tma_load_3d(s_v + at, &tm_v, kv_full, h * kBox, k0 + r,
+                              bkv);
+        }
+      for (int i = 0; i < kPasses * n_steps; ++i) {
+        const int t = i % n_steps;
+        const int bh = b * hq + kvh * group + g0 + t / n_q;
+        const int q0 = (qt0 + t % n_q) * kBQ;
+        const int s = i % kStages, use = i / kStages;
+        if (use > 0) mbar_wait(empty + 8 * s, (use - 1) & 1);
+        const uint32_t bar = full + 8 * s;
+        mbar_expect_tx(bar, 2 * L::kQ + 2 * L::kStat);
+#pragma unroll
+        for (int h = 0; h < L::kHalves; ++h) {
+          const uint32_t at = s * L::kQ + h * L::kQHalf;
+          hopper::tma_load_3d(s_q + at, &tm_q, bar, h * kBox, q0, bh);
+          hopper::tma_load_3d(s_do + at, &tm_do, bar, h * kBox, q0, bh);
+        }
+        const long long row = static_cast<long long>(bh) * lse_ld + q0;
+        hopper::bulk_load(s_lse + s * L::kStat, lse + row, L::kStat, bar);
+        hopper::bulk_load(s_delta + s * L::kStat, delta + row, L::kStat,
+                          bar);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    // Warpgroup wg owns keys kw0 ... kw0 + 63; the accumulators' rows are
+    // keys (key0 and key0 + 8 a lane), their columns query rows.
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int kw0 = k0 + wg * 64;
+    const int key0 = kw0 + warp * 16 + lane / 4;
+    const int col = 2 * (lane % 4);
+    const uint32_t s_kw = s_k + wg * 64 * 128, s_vw = s_v + wg * 64 * 128;
+    const float* lse_s = reinterpret_cast<const float*>(
+        smem_raw + (s_lse - raw));
+    const float* delta_s = reinterpret_cast<const float*>(
+        smem_raw + (s_delta - raw));
+    // Ring tile i: its stage, its first query row, and whether it sees
+    // this warpgroup's keys (its last row sees key kw0) or lies above
+    // the band; the tile needs masks where it crosses Sq or the causal
+    // diagonal.
+    auto stage = [](int i) { return i % kStages; };
+    auto first_row = [&](int i) {
+      return (qt0 + i % n_steps % n_q) * kBQ;
+    };
+    auto visible = [&](int q0) {
+      return !causal || min(q0 + kBQ, sq) - 1 + offset >= kw0;
+    };
+    auto on_edge = [&](int q0) {
+      return q0 + kBQ > sq || (causal && q0 + offset < kw0 + 63);
+    };
+    mbar_wait(kv_full, 0);
+
+    if constexpr (kPasses == 1) {
+      float acc_k[kAcc], acc_v[kAcc];
+#pragma unroll
+      for (int x = 0; x < kAcc; ++x) {
+        acc_k[x] = 0.0f;
+        acc_v[x] = 0.0f;
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = stage(i), q0 = first_row(i);
+        mbar_wait(full + 8 * s, (i / kStages) & 1);
+        if (visible(q0)) {
+          // Pᵀ first, before dPᵀ takes registers; then dPᵀ = V·dOᵀ and
+          // dV += Pᵀ·dO (dO as the MN-major B operand), dSᵀ, and
+          // dK += dSᵀ·Q (Q as the MN-major B operand).
+          uint32_t p[16], ds[16];
+          uint32_t off;
+          dkdv_probs<D>(p, off, s_kw, s_q + s * L::kQ, lse_s + s * kBQ, q0,
+                        key0, col, sq, offset, causal, on_edge(q0),
+                        scale_log2);
+          float dpt[32];
+          hopper::fence_regs(acc_v);
+          hopper::wgmma_fence();
+          mma_ss<D>(dpt, s_vw, L::kKHalf, s_do + s * L::kQ, L::kQHalf);
+          mma_rs_tile<D>(acc_v, p, s_do + s * L::kQ, L::kQHalf);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait_all();
+          hopper::fence_regs(dpt);
+          hopper::fence_regs(acc_v);
+          dkdv_dscores(ds, dpt, p, off, delta_s + s * kBQ, col);
+          hopper::fence_regs(acc_k);
+          hopper::wgmma_fence();
+          mma_rs_tile<D>(acc_k, ds, s_q + s * L::kQ, L::kQHalf);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait_all();
+          hopper::fence_regs(acc_k);
+        }
+        mbar_arrive(empty + 8 * s);
+      }
+      dkdv_store<D>(acc_k, dk, ws, 0, slice, slices, n_bkv, bkv, skv, key0,
+                    col, scale);
+      dkdv_store<D>(acc_v, dv, ws, 1, slice, slices, n_bkv, bkv, skv, key0,
+                    col, 1.0f);
+    } else {
+      {  // Pass 1: dV += Pᵀ·dO.
+        float acc_v[kAcc];
+#pragma unroll
+        for (int x = 0; x < kAcc; ++x) acc_v[x] = 0.0f;
+        for (int i = 0; i < n_steps; ++i) {
+          const int s = stage(i), q0 = first_row(i);
+          mbar_wait(full + 8 * s, (i / kStages) & 1);
+          if (visible(q0)) {
+            uint32_t p[16];
+            uint32_t off;
+            dkdv_probs<D>(p, off, s_kw, s_q + s * L::kQ, lse_s + s * kBQ,
+                          q0, key0, col, sq, offset, causal, on_edge(q0),
+                          scale_log2);
+            hopper::fence_regs(acc_v);
+            hopper::wgmma_fence();
+            mma_rs_tile<D>(acc_v, p, s_do + s * L::kQ, L::kQHalf);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait_all();
+            hopper::fence_regs(acc_v);
+          }
+          mbar_arrive(empty + 8 * s);
+        }
+        dkdv_store<D>(acc_v, dv, ws, 1, slice, slices, n_bkv, bkv, skv,
+                      key0, col, 1.0f);
+      }
+      {  // Pass 2: dSᵀ from Sᵀ again and dPᵀ, dK += dSᵀ·Q.
+        float acc_k[kAcc];
+#pragma unroll
+        for (int x = 0; x < kAcc; ++x) acc_k[x] = 0.0f;
+        for (int i = n_steps; i < 2 * n_steps; ++i) {
+          const int s = stage(i), q0 = first_row(i);
+          mbar_wait(full + 8 * s, (i / kStages) & 1);
+          if (visible(q0)) {
+            uint32_t p[16], ds[16];
+            uint32_t off;
+            dkdv_probs<D>(p, off, s_kw, s_q + s * L::kQ, lse_s + s * kBQ,
+                          q0, key0, col, sq, offset, causal, on_edge(q0),
+                          scale_log2);
+            float dpt[32];
+            hopper::wgmma_fence();
+            mma_ss<D>(dpt, s_vw, L::kKHalf, s_do + s * L::kQ, L::kQHalf);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait_all();
+            hopper::fence_regs(dpt);
+            dkdv_dscores(ds, dpt, p, off, delta_s + s * kBQ, col);
+            hopper::fence_regs(acc_k);
+            hopper::wgmma_fence();
+            mma_rs_tile<D>(acc_k, ds, s_q + s * L::kQ, L::kQHalf);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait_all();
+            hopper::fence_regs(acc_k);
+          }
+          mbar_arrive(empty + 8 * s);
+        }
+        dkdv_store<D>(acc_k, dk, ws, 0, slice, slices, n_bkv, bkv, skv,
+                      key0, col, scale);
+      }
+    }
+  }
 }
 
-}  // namespace tc
+// ---------------------------------------------------------------------------
+// (d) the slices' partial dK and dV, summed in slice order
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(256)
+attention_bwd_slice_sum(const float* __restrict__ ws, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, long long n, int slices) {
+  const long long n4 = n / 4;                    // D is a multiple of 4
+  const float4* w = reinterpret_cast<const float4*>(ws);
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+       i < 2 * n4; i += static_cast<long long>(gridDim.x) * 256) {
+    float4 acc = w[i];
+    for (int s = 1; s < slices; ++s) {
+      const float4 x = w[2 * s * n4 + i];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    bf16* out = i < n4 ? dk + 4 * i : dv + 4 * (i - n4);
+    *reinterpret_cast<uint2*>(out) = make_uint2(pack(acc.x, acc.y),
+                                                pack(acc.z, acc.w));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// Shared memory, and the check that the CTA's registers cover what its
+// warpgroups ask for after setmaxnreg (see kRegisterBudget): once a
+// kernel and device (the host's cost counts in a call this short).
+template <auto kKernel>
+int prepare(uint32_t smem) {
+  constexpr int kDevices = 64;
+  static int done[kDevices] = {};            // 0: not yet; else rc + 1
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kDevices && done[dev] != 0) return done[dev] - 1;
+  err = cudaFuncSetAttribute(kKernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kKernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int need = kConsumers * kConsumerRegs
+                   + (kThreads - kConsumers) * kProducerRegs;
+  const int rc = attr.numRegs * kThreads >= need ? 0 : kRegisterBudget;
+  if (dev < kDevices) done[dev] = rc + 1;
+  return rc;
+}
+
+template <int D>
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+           const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* lse,
+           float* delta, float* ws, long long b, long long hq, long long hkv,
+           long long sq, long long skv, long long lse_ld, float scale,
+           long long causal, long long have_lse, long long slices,
+           cudaStream_t stream) {
+  const long long bhq = b * hq, bhkv = b * hkv;
+  const int ic = static_cast<int>(causal), ild = static_cast<int>(lse_ld);
+  const float sl2 = scale * kLog2e;
+  // delta first: the card runs it while the host encodes the maps.
+  const long long rows = bhq * sq;
+  constexpr int kRowsPerBlock = 8 * (32 / (D / 8));
+  attention_bwd_delta<D>
+      <<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock),
+         256, 0, stream>>>(o, dout, delta, rows, static_cast<int>(sq), ild);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // One map a tensor: boxes of kBQ query rows (the dK/dV tile; the
+  // dQ kernel loads its 128 rows as several) and kBK keys (the dQ tile;
+  // the dK/dV kernel loads its 128 keys as two).
+  CUtensorMap qm, dom, km, vm;
+  int rc = hopper::bf16_map(&qm, q, D, sq, bhq, kBQ);
+  if (rc == 0) rc = hopper::bf16_map(&dom, dout, D, sq, bhq, kBQ);
+  if (rc == 0) rc = hopper::bf16_map(&km, k, D, skv, bhkv, kBK);
+  if (rc == 0) rc = hopper::bf16_map(&vm, v, D, skv, bhkv, kBK);
+  if (rc != 0) return rc;
+  auto kdq = have_lse ? attention_bwd_dq_wgmma<D, false>
+                      : attention_bwd_dq_wgmma<D, true>;
+  rc = have_lse ? prepare<attention_bwd_dq_wgmma<D, false>>(
+                      DqLayout<D>::kBytes)
+                : prepare<attention_bwd_dq_wgmma<D, true>>(
+                      DqLayout<D>::kBytes);
+  if (rc == 0)
+    rc = prepare<attention_bwd_dkdv_wgmma<D>>(DkdvLayout<D>::kBytes);
+  if (rc != 0) return rc;
+
+  const long long n_qt = (sq + kRows - 1) / kRows;
+  kdq<<<static_cast<unsigned>(n_qt * bhq), kThreads, DqLayout<D>::kBytes,
+        stream>>>(qm, dom, km, vm, lse, delta, dq,
+                  static_cast<int>(hq), static_cast<int>(hkv),
+                  static_cast<int>(bhq), static_cast<int>(sq),
+                  static_cast<int>(skv), ild, scale, sl2, ic);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const long long n_kt = (skv + kKeys - 1) / kKeys;
+  attention_bwd_dkdv_wgmma<D>
+      <<<static_cast<unsigned>(n_kt * slices * bhkv), kThreads,
+         DkdvLayout<D>::kBytes, stream>>>(
+      qm, dom, km, vm, lse, delta, dk, dv, ws, static_cast<int>(hq),
+      static_cast<int>(hkv), static_cast<int>(bhkv), static_cast<int>(sq),
+      static_cast<int>(skv), ild, static_cast<int>(slices), scale, sl2, ic);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return static_cast<int>(err);
+
+  const long long n = bhkv * skv * D;
+  const long long blocks = std::min((2 * n / 4 + 255) / 256, 132LL * 16);
+  attention_bwd_slice_sum<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      ws, dk, dv, n, static_cast<int>(slices));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
@@ -1002,14 +1462,6 @@ int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
            long long d, float scale, long long causal, void* stream_ptr) {
   if (b == 0 || hq == 0 || sq == 0 || skv == 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (d == 64)
-      return tc::launch_mma<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, b,
-                                hq, hkv, sq, skv, scale, causal, stream);
-    if (d == 128)
-      return tc::launch_mma<128>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                 b, hq, hkv, sq, skv, scale, causal, stream);
-  }
 #define WIDTH(D_)                                                          \
   if (d <= D_)                                                             \
     return d == D_ ? launch_d<T, D_, false>(q, k, v, o, dout, dq, dk, dv,  \
@@ -1046,6 +1498,36 @@ extern "C" int flash_attention_bwd_bf16(
                                hq, hkv, sq, skv, d, scale, causal, stream);
 }
 
+// "wgmma": bfloat16 at head dims 64 and 128.  lse and delta: float32
+// rows of lse_ld (Sq rounded up to 128) a (batch, query head); lse holds
+// the forward's log-sum-exp (base 2 of the scaled scores) when have_lse,
+// else the dQ kernel writes it.  ws: slices·2·B·Hkv·Skv·D float32 when
+// slices > 1 (a divisor of Hq/Hkv), else unused.
+extern "C" int flash_attention_bwd_wgmma_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* o, const __nv_bfloat16* dout, __nv_bfloat16* dq,
+    __nv_bfloat16* dk, __nv_bfloat16* dv, float* lse, float* delta,
+    float* ws, long long b, long long hq, long long hkv, long long sq,
+    long long skv, long long d, long long lse_ld, float scale,
+    long long causal, long long have_lse, long long slices, void* stream) {
+  if (b == 0 || hq == 0 || sq == 0 || skv == 0) return 0;
+  if (slices < 1 || (hq / hkv) % slices != 0 || lse_ld < sq
+      || lse_ld % wg::kLsePad != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return wg::launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, b,
+                          hq, hkv, sq, skv, lse_ld, scale, causal, have_lse,
+                          slices, st);
+  if (d == 128)
+    return wg::launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, b,
+                           hq, hkv, sq, skv, lse_ld, scale, causal, have_lse,
+                           slices, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code == wg::kRegisterBudget)
+    return "a setmaxnreg kernel was built with too few registers";
+  return hopper::error_string(code);
 }

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory
-// mbarriers, TMA tensor loads, and warpgroup matrix products (wgmma)
-// with their shared-memory descriptors.  Included by the kernels that
-// use them; `_build.library_path` hashes every header here, so an edit
-// rebuilds them.
+// mbarriers, TMA tensor and bulk loads, register reallocation between
+// warpgroups (setmaxnreg), and warpgroup matrix products (wgmma) with
+// their shared-memory descriptors; on the host, the bf16 tensor maps
+// the TMA loads read.  Included by the kernels that use them;
+// `_build.library_path` hashes every header here, so an edit rebuilds
+// them.
 
 #pragma once
 
@@ -79,6 +81,34 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// One thread copies `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) into shared memory; the copy completes on
+// an mbarrier, as a TMA load does.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// setmaxnreg: a warpgroup (or a lone warp) gives back or takes registers
+// a thread.  Executed by every thread of it; the roles must never
+// reconverge after it, or ptxas ignores it.
+// ---------------------------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---------------------------------------------------------------------------
@@ -192,6 +222,74 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// Host: bf16 tensor maps for the TMA loads
+// ---------------------------------------------------------------------------
+
+constexpr int kNoEncoder = -1;     // cuTensorMapEncodeTiled not found
+constexpr int kBadTensorMap = -2;  // cuTensorMapEncodeTiled refused
+constexpr int kBoxCols = 64;       // bf16 columns of one 128-byte box row
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// a library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 (B·H, S, D) tensor as a 3-D map (D, S, B·H) with boxes of
+// (64, rows, 1) in the 128-byte swizzle; reads past S fill zeros.
+inline int bf16_map(CUtensorMap* map, const void* ptr, long long d,
+                    long long s, long long bh, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d * 2),
+                                 static_cast<cuuint64_t>(s * d * 2)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBoxCols),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
+}
+
+// The message of a library's error code: a CUDA error, or one of the
+// tensor-map codes above.
+inline const char* error_string(int code) {
+  if (code == kNoEncoder)
+    return "cuTensorMapEncodeTiled not found through the runtime";
+  if (code == kBadTensorMap)
+    return "cuTensorMapEncodeTiled refused the tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace hopper

@@ -28,10 +28,11 @@ _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _HIST = (_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P)
 _TOTALS = (_P, _P, _P, _LL, _LL, _LL, _LL, _P)
 _ATTN = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _LL, _LL, _P)
-_ATTN_WGMMA = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _P)
+_ATTN_WGMMA = (_P,) * 5 + (_LL,) * 7 + (_F, _LL, _P)
 _ATTN_SPLIT = (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL,
                _LL, _LL, _P)
 _ATTN_BWD = (_P,) * 10 + (_LL,) * 6 + (_F, _LL, _P)
+_ATTN_BWD_WGMMA = (_P,) * 11 + (_LL,) * 7 + (_F, _LL, _LL, _LL, _P)
 #: One library per ``csrc/<name>.cu``, and its C entry points:
 #: (pointers..., sizes..., stream) -> ``cudaGetLastError()`` as int.
 SIGNATURES = {
@@ -49,7 +50,9 @@ SIGNATURES = {
                         "flash_attention_split_f32": _ATTN_SPLIT,
                         "flash_attention_split_bf16": _ATTN_SPLIT},
     "flash_attention_bwd": {"flash_attention_bwd_f32": _ATTN_BWD,
-                            "flash_attention_bwd_bf16": _ATTN_BWD},
+                            "flash_attention_bwd_bf16": _ATTN_BWD,
+                            "flash_attention_bwd_wgmma_bf16":
+                                _ATTN_BWD_WGMMA},
 }
 
 SOURCES = tuple(SIGNATURES)

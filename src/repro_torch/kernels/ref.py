@@ -7,6 +7,7 @@ CPU tensors, or on any tensor when the caller passes ``backend="ref"``.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -95,6 +96,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs, vf).to(q.dtype)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                  scale: float | None = None) -> torch.Tensor:
+    """Each query row's log-sum-exp, as the attention kernels store it:
+    float32 (B, Hq, Sq), in base 2 of the scaled scores,
+    ``log2 sum_j 2^(scale * log2(e) * q_i . k_j)`` over the keys the row
+    sees (:func:`attention`'s mask), +inf for a row that sees none."""
+    _, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    scale = scale if scale is not None else float(d) ** -0.5
+    kf = k.to(torch.float32).repeat_interleave(hq // hkv, dim=1)
+    logits = torch.matmul(q.to(torch.float32) * scale, kf.transpose(-1, -2))
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        seen = qpos >= torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(~seen, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1) / math.log(2.0)
+    return torch.where(torch.isfinite(lse), lse, math.inf)
 
 
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -835,7 +835,13 @@ def cuda():
 
 #: (B, Hq, Hkv, Sq, Skv, D, causal): GQA, ragged tiles, Sq < Skv (a
 #: chunk after cached keys, a decode row), Sq > Skv (rows that see no
-#: key), every instance width and a masked width between two.
+#: key), every instance width and a masked width between two.  On the
+#: bf16 "wgmma" path (D = 64, 128): groups of 1, 4 and 8 query heads,
+#: batch 2, Skv not a multiple of 128 and Sq not of 64, rows that see no
+#: key at both widths, a decode row (its forward takes "split", so the
+#: backward recomputes the lse), one head slice (G = 1) and several
+#: (``_bwd_plan``: every group under 132 CTAs splits to single heads;
+#: the last shape splits its groups of 4 in two).
 BWD_SHAPES = [
     (1, 4, 4, 128, 128, 64, True),
     (2, 8, 2, 100, 100, 64, True),
@@ -845,6 +851,12 @@ BWD_SHAPES = [
     (1, 2, 1, 50, 50, 256, True),
     (1, 4, 2, 65, 65, 80, True),
     (1, 4, 2, 40, 20, 64, True),
+    (1, 8, 1, 200, 333, 128, True),
+    (2, 16, 2, 130, 130, 64, False),
+    (1, 4, 4, 300, 300, 128, True),
+    (1, 8, 2, 40, 20, 128, True),
+    (2, 8, 1, 1, 90, 64, True),
+    (2, 32, 8, 1024, 1024, 64, True),
 ]
 #: float32 to 1e-4; bfloat16 at phase 2's 2e-2 (its output rounding).
 BWD_DTYPES = {"float32": (torch.float32, 1e-4),
@@ -855,24 +867,32 @@ BWD_DTYPES = {"float32": (torch.float32, 1e-4),
 @pytest.mark.parametrize("dtype", list(BWD_DTYPES))
 @pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
 def test_backward_kernel_equals_plain(cuda, shape, dtype):
-    """``flash_attention_backward`` on the card against
-    ``ref.attention_backward`` on the same inputs, one launch a call; and
-    autograd through ``flash_attention`` gives the same gradient."""
+    """``flash_attention_backward`` on the card, given the forward's lse
+    as the train step gives it, against ``ref.attention_backward`` on the
+    same inputs, one launch a call; the call that recomputes the lse to
+    the same tolerance; and autograd through ``flash_attention`` gives
+    the direct call's bits."""
     b, hq, hkv, sq, skv, d, causal = shape
     dt, tol = BWD_DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     q, k, v, dout = (torch.randn(s, generator=gen, device=cuda).to(dt)
                      for s in ((b, hq, sq, d), (b, hkv, skv, d),
                                (b, hkv, skv, d), (b, hq, sq, d)))
-    out = tfa.flash_attention(q, k, v, causal=causal)
+    out, lse = tfa._flash_attention_cuda(q, k, v, causal, d ** -0.5, 128,
+                                         128, with_lse=True)
     ops.reset_launches()
-    got = tfa.flash_attention_backward(q, k, v, out, dout, causal=causal)
+    got = tfa.flash_attention_backward(q, k, v, out, dout, causal=causal,
+                                       lse=lse)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention_bwd"] == 1
     want = ref.attention_backward(q, k, v, dout, causal=causal)
-    for g, w in zip(got, want):
-        assert g.dtype == dt and g.shape == w.shape
-        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    recomputed = tfa.flash_attention_backward(q, k, v, out, dout,
+                                              causal=causal)
+    for grads in (got, recomputed):
+        for g, w in zip(grads, want):
+            assert g.dtype == dt and g.shape == w.shape
+            torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                       atol=tol)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     o = tfa.flash_attention(*leaves, causal=causal)
     assert o.grad_fn is not None
