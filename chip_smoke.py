@@ -22,7 +22,8 @@ Phases, each failing the run on any error:
    time, the plain version's, one PyTorch library call's for the same
    function, and the least time the card could take (bytes moved at
    3.35 TB/s; operations at 67 TFLOP/s in float32 outside the tensor
-   cores, 989 TFLOP/s in bfloat16 — the H100 SXM data sheet).
+   cores, 989 TFLOP/s in bfloat16 and float16 — the H100 SXM data
+   sheet).
    ``segment_sum`` adds a sorted case with non-integer values that must
    give the same bits on two launches.  ``probe_counts`` adds hop 2's
    queries shuffled within each row (windows too wide for shared
@@ -36,20 +37,25 @@ Phases, each failing the run on any error:
    128) over 4,096 positions: bfloat16 prefill, a ragged chunk (1,000
    queries after 2,000 cached keys) and head dim 64 on the tensor
    cores, decode in bfloat16 and float32 split over the kv axis, and
-   float32 prefill on the CUDA cores; each case logs the path ``_plan``
-   chose.  A granite-3-2b bf16 prefill (the train step's forward) joins
-   them, and every ``wgmma`` case is timed again with the lse store the
-   backward reads, that lse held to ``ref.attention_lse``.  Phase 3j
-   adds two cases at the model's shapes.
+   float32 prefill on the CUDA cores ("simt"); each case logs the path,
+   query tile and parts ``_plan`` chose.  A granite-3-2b bf16 prefill
+   (the train step's forward) joins them, and every ``wgmma`` and
+   ``simt`` case is timed again with the lse store the backward reads,
+   that lse held to ``ref.attention_lse``.  The C3 16-bit prefills
+   (bfloat16 at head dim 80, float16 at 128) must take ``wgmma`` in
+   their own dtype, the float32 prefills ``simt``.  Phase 3j adds two
+   cases at the model's shapes.
    ``flash_attention_bwd`` (the gradient, port-only: the JAX package
    differentiates its jnp attention) runs at granite-3-2b's attention
    as phase 3k's train step calls it (32 query heads over 8 kv heads,
    head dim 64, 2,048 positions, causal) in bfloat16 and float32, a
-   ragged chunk at head dim 128 and head dim 256; each against
-   ``ref.attention_backward`` (2e-2 bf16, 1e-4 f32), with the forward's
-   lse (timed: the train step's call) and recomputing it (timed too),
-   two launches bit-equal, with SDPA's backward as the library time;
-   the bf16 cases must take ``wgmma``.
+   ragged chunk at head dim 128, head dim 256 in float32, and qwen2-7b's
+   heads at 1,024 positions in bfloat16 at head dim 80, float16 at 128
+   (both ``wgmma``) and bfloat16 at 192 (``simt``); each against
+   ``ref.attention_backward`` (2e-2 bf16, 2e-3 fp16, 1e-4 f32), with
+   the forward's lse (timed: the train step's call; no lse pass in its
+   trace) and recomputing it (timed too), two launches bit-equal, with
+   SDPA's backward as the library time; each case must take its path.
 3. The main path at full size: R-MAT ``amazon`` at ``--scale`` (edge
    factor 3, a = 0.50), planned with ``chain_stats_exact`` and
    ``plan_chain(k=16)``, sized by ``default_chain_caps``, and run by
@@ -3035,7 +3041,7 @@ def kernel_group(name: str) -> str:
     if "attention_bwd" in low:
         return "flash_attention_bwd"
     if any(k in low for k in ("attention_wgmma", "attention_split",
-                              "flash_attention_kernel")):
+                              "attention_simt")):
         return "flash_attention"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")):
         return "gemm"
@@ -3583,7 +3589,7 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        _flash_attention_cuda, _plan, flash_attention)
+        NATIVE_DTYPES, _flash_attention_cuda, _plan, flash_attention)
 
     # The plain version's float32 products run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3623,7 +3629,7 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
                            iters)
         lib_dev_ms = device_ms(library, iters)
         with_lse = {}
-        if plan.path == "wgmma":
+        if plan.path != "split":
             # The forward under autograd also stores each row's lse: the
             # same call with the store, timed beside the one without.
             def stored():
@@ -3644,7 +3650,8 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
         b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
         results[label] = dict(
             shape=f"q{q_shape} kv{kv_shape} causal {dtype}",
-            path=plan.path, splits=plan.splits, max_abs_err=err, ms=ms,
+            path=plan.path, splits=plan.splits, tile=plan.tile,
+            native=dtype in NATIVE_DTYPES[plan.path], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
             library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
             library="torch.nn.functional.scaled_dot_product_attention",
@@ -3658,6 +3665,16 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
             check(results[prefill]["path"] == "wgmma"
                   and results[decode]["path"] == "split",
                   f"flash_attention: {prefill} or {decode} off its path")
+    # The C3 16-bit prefills run on the tensor cores in their own dtype
+    # (no float32 copy); float32 prefill on the redesigned "simt".
+    want = {"c3_prefill_d80_bfloat16": "wgmma",
+            "c3_prefill_float16": "wgmma", "prefill_float32": "simt",
+            "c3_prefill_d192_float32": "simt", "c3_rows_float32": "simt"}
+    off = {k: results[k]["path"] for k, p in want.items()
+           if k in results and results[k]["path"] != p}
+    check(not off, f"flash_attention: cases off their path: {off}")
+    check(all(results[k]["native"] for k in want if k in results),
+          "flash_attention: a prefill case ran through a float32 copy")
     return results
 
 
@@ -3669,21 +3686,31 @@ def flash_attention_phase(gen, iters: int, dev, cases=None) -> dict:
 GRANITE_HEADS, GRANITE_KV_HEADS, GRANITE_DIM, GRANITE_LEN = 32, 8, 64, 2048
 # The backward against its plain version: phase 2's bf16 tolerance; in
 # float32 1e-4 (sums over 2,048 keys in another order).
-BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float32: 1e-4}
 # The forward's lse (a log2, ~11 at 2,048 keys) against the plain one:
 # float32 sums in another order and the fast exp2 / log2.
 LSE_TOL = 1e-3
 
 
 def attention_bwd_cases():
-    """(label, q shape, kv shape, dtype) of the backward kernel's phase."""
+    """(label, q shape, kv shape, dtype) of the backward kernel's phase:
+    granite in both dtypes, the ragged chunk, D = 256, and the forward's
+    C3 shapes (qwen2-7b's heads at 1,024 positions: bfloat16 at D = 80
+    and float16 at D = 128 on "wgmma"; bfloat16 at D = 192 on "simt")."""
     h, hkv, d, n = GRANITE_HEADS, GRANITE_KV_HEADS, GRANITE_DIM, GRANITE_LEN
+    ah, akv = ATTN_HEADS, ATTN_KV_HEADS
     return [
         ("granite_bfloat16", (1, h, n, d), (1, hkv, n, d), torch.bfloat16),
         ("granite_float32", (1, h, n, d), (1, hkv, n, d), torch.float32),
-        ("chunk_bfloat16", (1, ATTN_HEADS, ATTN_CHUNK, ATTN_DIM),
-         (1, ATTN_KV_HEADS, ATTN_CHUNK_KV, ATTN_DIM), torch.bfloat16),
+        ("chunk_bfloat16", (1, ah, ATTN_CHUNK, ATTN_DIM),
+         (1, akv, ATTN_CHUNK_KV, ATTN_DIM), torch.bfloat16),
         ("d256_float32", (1, 4, 512, 256), (1, 2, 512, 256), torch.float32),
+        ("d80_bfloat16", (1, ah, 1024, 80), (1, akv, 1024, 80),
+         torch.bfloat16),
+        ("d128_float16", (1, ah, 1024, 128), (1, akv, 1024, 128),
+         torch.float16),
+        ("d192_bfloat16", (1, 4, 1024, 192), (1, 4, 1024, 192),
+         torch.bfloat16),
     ]
 
 
@@ -3693,18 +3720,21 @@ def attention_pairs(sq: int, skv: int) -> int:
     return sum(max(0, min(skv, i + skv - sq + 1)) for i in range(sq))
 
 
-#: The backward's device functions, one launch each a call, by path;
-#: "wgmma" adds ``attention_bwd_slice_sum`` where it slices the heads.
+#: The backward's device functions, one launch each a call given the
+#: forward's lse, by path; both add ``attention_bwd_slice_sum`` where the
+#: dK/dV grid sums partials ("wgmma" head slices, "simt" parts), and
+#: "simt" once more where its dQ sums parts, and ``attention_bwd_lse``
+#: only when it recomputes the lse.
 BWD_FUNCTIONS = {"wgmma": ("attention_bwd_delta", "attention_bwd_dq_wgmma",
                            "attention_bwd_dkdv_wgmma"),
-                 "simt": ("attention_bwd_preprocess", "attention_bwd_dq",
-                          "attention_bwd_dkdv")}
+                 "simt": ("attention_bwd_delta", "attention_bwd_dq_simt",
+                          "attention_bwd_dkdv_simt")}
 
 
-def bwd_device_split(fn, iters: int, want: tuple, what: str):
+def bwd_device_split(fn, iters: int, want: dict, what: str):
     """Device ms a call of each backward device function that ``fn``
-    runs, from a trace of ``iters`` calls holding exactly ``iters``
-    records of each function in ``want``.  The profiler drops records
+    runs, from a trace of ``iters`` calls holding exactly ``iters`` times
+    ``want[f]`` records of each function f (its launches a call).  The profiler drops records
     (ROADMAP C9): a trace that falls short is taken again, three times
     at most (each short attempt logged and kept in ``TRACE_RETRIES``),
     and None comes back if none was whole."""
@@ -3715,10 +3745,10 @@ def bwd_device_split(fn, iters: int, want: tuple, what: str):
             key = m.group(0) if m else name[:40]
             split[key] = split.get(key, 0.0) + fn_ms
             records[key] = records.get(key, 0) + n
-        if all(records.get(f) == iters for f in want):
+        if all(records.get(f) == iters * n for f, n in want.items()):
             return split
         log(f"trace: {what}: attempt {attempt} held records {records}, "
-            f"want {iters} of each of {list(want)}")
+            f"want {iters} calls of {want}")
         TRACE_RETRIES.append(f"{what} (attempt {attempt}: {records})")
     return None
 
@@ -3752,11 +3782,13 @@ def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
     results = {}
     for label, q_shape, kv_shape, dtype in attention_bwd_cases():
         tol = BWD_TOL[dtype]
-        rate = HALF_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         b, h, sq, d = q_shape
         skv = kv_shape[2]
         hkv = kv_shape[1]
         plan = _bwd_plan(b, h, hkv, sq, skv, d, dtype, True)
+        # The peak of the dtype's operations, whichever path runs them.
+        rate = (HALF_OPS_PER_S if dtype in (torch.bfloat16, torch.float16)
+                else FP32_OPS_PER_S)
         q, k, v = attention_inputs(gen, dev, q_shape, kv_shape, dtype)
         dout = torch.randn(q_shape, generator=gen, device=dev).to(dtype)
         out, lse = _flash_attention_cuda(q, k, v, True, d ** -0.5, 128, 128,
@@ -3806,10 +3838,15 @@ def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
                                        retain_graph=True)
 
         lib_ms = time_ms(library, iters)
-        want_fns = BWD_FUNCTIONS[plan.path] + (
-            ("attention_bwd_slice_sum",) if plan.slices > 1 else ())
+        want_fns = dict.fromkeys(BWD_FUNCTIONS[plan.path], 1)
+        sums = (plan.slices > 1) + (plan.q_parts > 1)
+        if sums:
+            want_fns["attention_bwd_slice_sum"] = sums
         split = bwd_device_split(kernel, iters, want_fns,
                                  f"flash_attention_bwd {label}")
+        # Given the forward's lse, no lse pass runs.
+        check(split is None or "attention_bwd_lse" not in split,
+              f"flash_attention_bwd {label}: an lse pass given the lse")
         pairs = attention_pairs(sq, skv)
         n_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
         n_ops_recompute = 12 * b * h * d * pairs
@@ -3818,6 +3855,8 @@ def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
         results[label] = dict(
             shape=f"q{q_shape} kv{kv_shape} causal {dtype}",
             path=plan.path, slices=plan.slices, ctas=plan.ctas,
+            dq_tile=plan.tile, dq_parts=plan.q_parts,
+            lse_from_forward=lse is not None,
             max_abs_err=err, ms=ms, ms_recompute_lse=ms_recompute,
             plain_ms=plain_ms, library_ms=lib_ms,
             device_ms=None if split is None else sum(split.values()),
@@ -3831,10 +3870,15 @@ def flash_attention_bwd_phase(gen, iters: int, dev) -> dict:
         log(f"kernel flash_attention_bwd {label}: {results[label]}")
         del q, k, v, dout, out, lse, leaves, lib_out, mask
         torch.cuda.empty_cache()
-    check(results["granite_bfloat16"]["path"] == "wgmma"
-          and results["chunk_bfloat16"]["path"] == "wgmma"
-          and results["granite_float32"]["path"] == "simt",
-          "flash_attention_bwd: a case off its path")
+    want_paths = {"granite_bfloat16": "wgmma", "chunk_bfloat16": "wgmma",
+                  "d80_bfloat16": "wgmma", "d128_float16": "wgmma",
+                  "granite_float32": "simt", "d256_float32": "simt",
+                  "d192_bfloat16": "simt"}
+    off = {k: results[k]["path"] for k, p in want_paths.items()
+           if results[k]["path"] != p}
+    check(not off, f"flash_attention_bwd: cases off their path: {off}")
+    check(all(r["lse_from_forward"] for r in results.values()),
+          "flash_attention_bwd: a forward returned no lse")
     return results
 
 

@@ -1,6 +1,7 @@
 // flash_attention: blocked online-softmax attention with GQA and an
 // end-aligned causal diagonal.  q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D)
-// -> o (B, Hq, Sq, D), float32 or bfloat16 in and out, float32 inside.
+// -> o (B, Hq, Sq, D), float32, bfloat16 or float16 in and out, float32
+// inside.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (_kernel: (Bq x D).(D x Bk) MXU tiles, the (m, l,
@@ -9,26 +10,31 @@
 // through the BlockSpec map).  Query row i sits at absolute position
 // i + (Skv - Sq); it sees key j iff j < Skv and, when causal, j <= that
 // position.  A row that sees no key returns zeros, as the TPU kernel's
-// does.  Head dims: 64 and 128 on "wgmma"; any d <= 256 on "simt" and
-// "split", through instances at the widths the configs use (16, 32, 64,
-// 128, 192) and 256, where a d between two takes the wider instance
-// with its columns past d masked (split's widths are multiples of 32).
-// Other float dtypes reach "simt" and "split" as float32 (the wrapper
-// casts in and out).
+// does.  Head dims: any d <= 128 with d % 8 == 0 on "wgmma" (instances
+// of width 64 and 128); any d <= 256 on "simt" and "split", through
+// instances at the widths the configs use (16, 32, 64, 128, 192) and
+// 256, where a d between two takes the wider instance with its columns
+// past d masked (split's widths are multiples of 32).  Other float
+// dtypes reach "split" (float16 too) as float32 (the wrapper casts in and
+// out).
 //
 // Bound on the H100: operations for prefill (4·Sq·Skv·D per head,
 // about halved by the causal band), bytes for decode (the KV cache is
 // read once).  Three kernels; the wrapper's `_plan` picks one:
 //
-//   * "wgmma" (bfloat16, Sq > 16): the tensor cores.  A CTA of two
+//   * "wgmma" (bfloat16 or float16, Sq > 16, d <= 128, d % 8 == 0): the
+//     tensor cores.  A CTA of two
 //     consumer warpgroups (64 query rows each, BQ = 128) and one
 //     producer warp.  The producer issues TMA loads of the Q tile once
 //     and of (K, V) tiles of BK = 64 rows into a two-stage ring,
 //     signalled by full/empty mbarrier pairs.  Tensor maps are 3-D
-//     (D, S, B·H), so a tile past Sq or Skv reads zeros inside its own
-//     head; with the 128-byte swizzle a box row is at most 64 bf16, so
-//     a D = 128 row is two boxes.  S = Q·Kᵀ is wgmma m64n64k16 with K
-//     as the K-major B operand; O += P·V is m64nDk16 with P in
+//     (d, S, B·H) with boxes of the instance's width W (64 or 128), so a
+//     tile past Sq or Skv reads zeros inside its own head, and a row of
+//     d < W reads zeros past d: they add nothing to Q·Kᵀ, and the
+//     columns of O past d are never stored.  With the 128-byte swizzle a
+//     box row is at most 64 16-bit elements, so a W = 128 row is two
+//     boxes.  S = Q·Kᵀ is wgmma m64n64k16 with K
+//     as the K-major B operand; O += P·V is m64nWk16 with P in
 //     registers (the S accumulator's layout is the A operand's, so P
 //     never touches shared memory) and V as the MN-major B operand
 //     (transpose bit).  The online softmax stays in float32 registers:
@@ -53,13 +59,17 @@
 //     kernel merges the splits in split order with log-sum-exp weights:
 //     deterministic, no atomics; a split where a row sees no key weighs
 //     0, a row that sees none at all gets zeros.
-//   * "simt" (float32, Sq > 16; and bfloat16 at head dims wgmma lacks):
-//     one CTA of 256 threads per (head, query tile), launched per
-//     65,535 heads, on the CUDA cores in float32, the
-//     (m, l, acc) recurrence in registers, probabilities through shared
-//     memory.  wgmma has no full-float32 mode, and TF32 operands would
-//     miss the reference's 2e-5 tolerance, so float32 prefill stays
-//     here.
+//   * "simt" (float32 prefill, and bfloat16 / float16 at head dims
+//     "wgmma" lacks: d > 128 or d % 8 != 0): attention_simt, one CTA of
+//     4·BQ threads per (head, query tile of BQ = 16, 32 or 64 rows), on
+//     the CUDA cores in float32 with register-tiled products and a
+//     cp.async ring of (K, V) tiles (csrc/attention_simt.cuh).  wgmma
+//     has no full-float32 mode, and TF32 operands would miss the
+//     reference's 2e-5 tolerance, so float32 prefill stays here.  Given
+//     an lse pointer it stores each row's log-sum-exp as "wgmma" does.
+//     Where even 16-row tiles leave the SMs short of threads, each query
+//     tile's key tiles split into parts, merged (with the lse) by the
+//     "split" path's attention_combine.
 //
 // A kernel that cannot launch returns its CUDA error; a tensor map that
 // cannot be encoded returns hopper::kNoEncoder or kBadTensorMap.
@@ -70,8 +80,10 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "attention_simt.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -91,210 +103,12 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // ---------------------------------------------------------------------------
-// "simt": float32 on the CUDA cores, one CTA per (head, query tile)
-// ---------------------------------------------------------------------------
-
-namespace simt {
-
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
-
-template <int D, int BQ, int BK>
-struct Smem {
-  static constexpr int kQ = BQ * (D + 1);
-  static constexpr int kK = BK * (D + 1);
-  static constexpr int kV = BK * D;
-  static constexpr int kP = BQ * (BK + 1);
-  static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP);
-};
-
-// Grid (query tiles, B·Hq), B·Hq <= 65535 (the launcher cuts larger
-// batches into such launches).  An instance of width D takes head dim
-// d == D (kMasked false) or any d < D (kMasked true: rows of d
-// elements, the columns past d read as zeros and not written).
-template <typename T, int D, int BQ, int BK, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int hq,
-                       int hkv, long long sq, long long skv, int d,
-                       float scale, int causal) {
-  constexpr int TPR = kThreads / BQ;   // lanes per query row
-  constexpr int CPT = BK / TPR;        // scores per lane per tile
-  constexpr int DPT = D / TPR;         // output columns per lane
-  using S = Smem<D, BQ, BK>;
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [BQ][D + 1], scaled
-  float* ks = qs + S::kQ;              // [BK][D + 1]
-  float* vs = ks + S::kK;              // [BK][D]
-  float* ps = vs + S::kV;              // [BQ][BK + 1]
-
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int t = tid % TPR;
-  const long long ld = kMasked ? d : D;           // row stride of q/k/v/o
-  const long long q0 = static_cast<long long>(blockIdx.x) * BQ;
-  const long long offset = skv - sq;
-
-  const long long bh = blockIdx.y;
-  const long long kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
-  const T* qb = q + (bh * sq + q0) * ld;
-  const T* kb = k + kvh * skv * ld;
-  const T* vb = v + kvh * skv * ld;
-
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int rr = idx / D, dd = idx % D;
-    const bool in = q0 + rr < sq && (!kMasked || dd < d);
-    qs[rr * (D + 1) + dd] = in ? to_float(qb[rr * ld + dd]) * scale : 0.0f;
-  }
-
-  const long long n_kt = (skv + BK - 1) / BK;
-  long long n_live = n_kt;
-  if (causal) {
-    const long long q_last = min(q0 + BQ - 1, sq - 1) + offset;
-    n_live = q_last < 0 ? 0 : min(n_kt, q_last / BK + 1);
-  }
-  const long long qpos = q0 + r + offset;
-
-  float m = kNegInf, l = 0.0f;
-  float acc[DPT];
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) acc[j] = 0.0f;
-
-  for (long long kt = 0; kt < n_live; ++kt) {
-    const long long k0 = kt * BK;
-    __syncthreads();                 // previous tile's K/V reads done
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int rr = idx / D, dd = idx % D;
-      const bool in = k0 + rr < skv && (!kMasked || dd < d);
-      const long long at = (k0 + rr) * ld + dd;
-      ks[rr * (D + 1) + dd] = in ? to_float(kb[at]) : 0.0f;
-      vs[rr * D + dd] = in ? to_float(vb[at]) : 0.0f;
-    }
-    __syncthreads();
-
-    float s[CPT];
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) s[i] = 0.0f;
-    for (int dd = 0; dd < D; ++dd) {
-      const float qd = qs[r * (D + 1) + dd];
-#pragma unroll
-      for (int i = 0; i < CPT; ++i)
-        s[i] += qd * ks[(t + TPR * i) * (D + 1) + dd];
-    }
-    float mx = kNegInf;
-    bool ok[CPT];
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const long long kpos = k0 + t + TPR * i;
-      ok[i] = kpos < skv && (!causal || qpos >= kpos);
-      s[i] = ok[i] ? s[i] : kNegInf;
-      mx = fmaxf(mx, s[i]);
-    }
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float rowsum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const float p = ok[i] ? expf(s[i] - m_new) : 0.0f;
-      rowsum += p;
-      ps[r * (BK + 1) + t + TPR * i] = p;
-    }
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      rowsum += __shfl_xor_sync(0xffffffffu, rowsum, off);
-    l = l * corr + rowsum;
-    m = m_new;
-    __syncwarp();                    // the row's P is written by its lanes
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[j] *= corr;
-    for (int c = 0; c < BK; ++c) {
-      const float pc = ps[r * (BK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[j] += pc * vs[c * D + t + TPR * j];
-    }
-  }
-
-  if (q0 + r < sq) {
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    T* ob = o + (bh * sq + q0 + r) * ld;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int col = t + TPR * j;
-      if (!kMasked || col < d) ob[col] = from_float<T>(acc[j] * inv);
-    }
-  }
-}
-
-template <typename T, int D, int BQ, int BK, bool kMasked>
-int launch_tile(const T* q, const T* k, const T* v, T* o, long long b,
-                long long hq, long long hkv, long long sq, long long skv,
-                long long d, float scale, long long causal,
-                cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D, BQ, BK, kMasked>;
-  const size_t smem = Smem<D, BQ, BK>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Batches cut into launches of at most 65,535 (batch, head) rows.
-  const long long step = std::max(1LL, kMaxGridY / hq);
-  for (long long b0 = 0; b0 < b; b0 += step) {
-    const long long nb = std::min(step, b - b0);
-    dim3 grid(static_cast<unsigned>((sq + BQ - 1) / BQ),
-              static_cast<unsigned>(nb * hq));
-    kernel<<<grid, kThreads, smem, stream>>>(
-        q + b0 * hq * sq * d, k + b0 * hkv * skv * d, v + b0 * hkv * skv * d,
-        o + b0 * hq * sq * d, static_cast<int>(hq), static_cast<int>(hkv),
-        sq, skv, static_cast<int>(d), scale, static_cast<int>(causal));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
-template <typename T, int D>
-int launch_d(const T* q, const T* k, const T* v, T* o, long long b,
-             long long hq, long long hkv, long long sq, long long skv,
-             long long d, float scale, long long causal, long long bq,
-             long long bk, cudaStream_t stream) {
-#define TILE(BQ_, BK_)                                                     \
-  if (bq == BQ_ && bk == BK_)                                              \
-    return d == D ? launch_tile<T, D, BQ_, BK_, false>(                    \
-                        q, k, v, o, b, hq, hkv, sq, skv, d, scale, causal, \
-                        stream)                                            \
-                  : launch_tile<T, D, BQ_, BK_, true>(                     \
-                        q, k, v, o, b, hq, hkv, sq, skv, d, scale, causal, \
-                        stream);
-  TILE(16, 64) TILE(64, 64)
-#undef TILE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, long long b,
-           long long hq, long long hkv, long long sq, long long skv,
-           long long d, float scale, long long causal, long long bq,
-           long long bk, void* stream_ptr) {
-  if (b == 0 || hq == 0 || sq == 0) return 0;
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define WIDTH(D_)                                                          \
-  if (d <= D_)                                                             \
-    return launch_d<T, D_>(q, k, v, o, b, hq, hkv, sq, skv, d, scale,      \
-                           causal, bq, bk, stream);
-  WIDTH(16) WIDTH(32) WIDTH(64) WIDTH(128) WIDTH(192) WIDTH(256)
-#undef WIDTH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace simt
-
-// ---------------------------------------------------------------------------
-// "wgmma": bfloat16 prefill on the tensor cores, TMA-fed
+// "wgmma": bfloat16 or float16 prefill on the tensor cores, TMA-fed
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -309,7 +123,7 @@ constexpr int kBK = 64;             // kv rows a tile
 constexpr int kStages = 2;          // (K, V) ring
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
-constexpr int kBox = hopper::kBoxCols;   // bf16 columns of a box row
+constexpr int kBox = hopper::kBoxCols;   // 16-bit columns of a box row
 constexpr uint32_t kAtom = 1024;    // 8 swizzled rows of 128 bytes
 
 template <int D>
@@ -325,14 +139,17 @@ struct Layout {
   static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + kAtom;
 };
 
-template <int D>
+// An instance of width D (64 or 128) and element type T (bf16 or
+// half) takes head dim d <= D (the maps read zeros past d; o is stored
+// in rows of d).
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
                 __grid_constant__ const CUtensorMap tm_k,
                 __grid_constant__ const CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                T* __restrict__ o, float* __restrict__ lse,
                 int lse_ld, int hq, int hkv, int n_bh, int sq, int skv,
-                float scale_log2, int causal) {
+                int d, float scale_log2, int causal) {
   using L = Layout<D>;
   constexpr int kAcc = D / 2;                 // accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -426,7 +243,7 @@ attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
             s_q + (kk / 4) * L::kQHalf + wg * 64 * 128 + step, 16, kAtom);
         const uint64_t db = sw128_desc(
             s_k + s * L::kKV + (kk / 4) * L::kKVHalf + step, 16, kAtom);
-        hopper::wgmma_m64n64k16_ss(sc, da, db, kk > 0);
+        hopper::wgmma_m64n64k16_ss<T>(sc, da, db, kk > 0);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
@@ -460,7 +277,7 @@ attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
       m1 = mx1;
       l0 *= c0;
       l1 *= c1;
-      // P in bf16, already in the A operand's register layout: the
+      // P in T, already in the A operand's register layout: the
       // four registers of k-step kk are p[4·kk ... 4·kk + 3].
       uint32_t p[16];
 #pragma unroll
@@ -471,10 +288,8 @@ attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
         const float e3 = exp2f(fmaf(sc[4 * j + 3], scale_log2, -b1));
         l0 += e0 + e1;
         l1 += e2 + e3;
-        const __nv_bfloat162 p01 = __floats2bfloat162_rn(e0, e1);
-        const __nv_bfloat162 p23 = __floats2bfloat162_rn(e2, e3);
-        p[2 * j] = *reinterpret_cast<const uint32_t*>(&p01);
-        p[2 * j + 1] = *reinterpret_cast<const uint32_t*>(&p23);
+        p[2 * j] = hopper::pack2<T>(e0, e1);
+        p[2 * j + 1] = hopper::pack2<T>(e2, e3);
       }
 #pragma unroll
       for (int j = 0; j < kAcc / 4; ++j) {
@@ -494,9 +309,9 @@ attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
         const uint64_t db = sw128_desc(s_v + s * L::kKV + kk * 16 * 128,
                                        L::kKVHalf, kAtom);
         if constexpr (D == 128) {
-          hopper::wgmma_m64n128k16_rs(acc, a, db, 1);
+          hopper::wgmma_m64n128k16_rs<T>(acc, a, db, 1);
         } else {
-          hopper::wgmma_m64n64k16_rs(acc, a, db, 1);
+          hopper::wgmma_m64n64k16_rs<T>(acc, a, db, 1);
         }
       }
       hopper::wgmma_commit();
@@ -521,19 +336,20 @@ attention_wgmma(__grid_constant__ const CUtensorMap tm_q,
     if (row0 + 8 < sq)
       lb[row0 + 8] = l1 > 0.0f ? fmaf(m1, scale_log2, log2f(l1)) : INFINITY;
   }
-  __nv_bfloat16* ob = o + static_cast<long long>(bh) * sq * D;
+  // Columns past d (zeros) are not stored; d % 8 == 0, so a pair at
+  // c < d is whole.
+  T* ob = o + static_cast<long long>(bh) * sq * d;
 #pragma unroll
   for (int j = 0; j < kAcc / 4; ++j) {
     const int c = 8 * j + col;
+    if (c >= d) continue;
     if (row0 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row0) * D
-                                         + c) =
-          __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row0) * d + c) =
+          hopper::pack2<T>(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
     if (row0 + 8 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          ob + static_cast<long long>(row0 + 8) * D + c) =
-          __floats2bfloat162_rn(acc[4 * j + 2] * inv1,
-                                acc[4 * j + 3] * inv1);
+      *reinterpret_cast<uint32_t*>(ob + static_cast<long long>(row0 + 8) * d
+                                   + c) =
+          hopper::pack2<T>(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
   }
 }
 
@@ -583,7 +399,7 @@ struct Smem {
 // region).  Row r of a kv group is query head r / Sq of the group at
 // query index r % Sq.  Writes, per row and split, m (the
 // running max in log2 units), l and acc[d] unnormalised (rows of d
-// floats in ws_acc).  kMasked as in simt: an instance of width D for a
+// floats in ws_acc).  kMasked: an instance of width D for a
 // head dim d < D, scalar loads, columns past d zero and not written.
 template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
@@ -723,11 +539,14 @@ attention_split(const T* __restrict__ q, const T* __restrict__ k,
 // Grid (B·Hq·Sq rows, D / 32): warp w of a CTA sums the splits
 // s ≡ w (mod kWarps) for 32 columns of one row, one a lane; the warps'
 // partial sums are then added in warp order.  Weights 2^(m_s − max m).
+// lse (may be null; the "simt" forward's parts): the row's log-sum-exp
+// in base 2, max m + log2 l, at lse[(row / sq)·lse_ld + row % sq].
 template <typename T, int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 attention_combine(const float* __restrict__ ws_acc,
                   const float* __restrict__ ws_ml, T* __restrict__ o,
-                  long long total_rows, int n_split, int d) {
+                  long long total_rows, int n_split, int d,
+                  float* __restrict__ lse, int lse_ld, int sq) {
   extern __shared__ float weight[];           // [n_split]
   __shared__ float red[kWarps];
   __shared__ float part_acc[kWarps][32];
@@ -749,8 +568,11 @@ attention_combine(const float* __restrict__ ws_acc,
   mx = red[0];
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[w]);
+  const bool lse_here = lse != nullptr && blockIdx.y == 0 && tid == 0;
+  float* lse_at = lse_here ? lse + (row / sq) * lse_ld + row % sq : nullptr;
   if (mx == -INFINITY) {                       // the row sees no key
     if (warp == 0 && live) o[row * ld + c] = from_float<T>(0.0f);
+    if (lse_here) *lse_at = INFINITY;
     return;
   }
   for (int s = tid; s < n_split; s += kThreads)
@@ -775,27 +597,110 @@ attention_combine(const float* __restrict__ ws_acc,
       acc += part_acc[w][lane];
     }
     o[row * ld + c] = from_float<T>(acc / l);
+    if (lse_here) *lse_at = mx + log2f(l);
   }
 }
 
 }  // namespace split
 
 // ---------------------------------------------------------------------------
+// "simt": the CUDA cores, float32 inside (csrc/attention_simt.cuh)
+// ---------------------------------------------------------------------------
+
+namespace simt_fwd {
+
+using namespace ::simt;
+
+// 1-D grid of (query tiles) x (parts) x (B·Hq); blockDim.x = 4·bq.
+template <typename T, int D>
+__global__ void __launch_bounds__(256, Cfg<D>::kMinBlocks)
+attention_simt(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int lse_ld, int hq, int hkv,
+               long long n_bh, int sq, int skv, int d, float scale_log2,
+               int causal, int vec, int parts, float* __restrict__ ws_acc,
+               float* __restrict__ ws_ml) {
+  forward<T, D>(q, k, v, o, lse, lse_ld, hq, hkv, n_bh, sq, skv, d,
+                scale_log2, causal, vec != 0, parts, ws_acc, ws_ml);
+}
+
+// parts > 1 (widths from 32): each query tile's key tiles split into
+// parts, their partials in ws_acc / ws_ml merged by the split path's
+// combine kernel, which also stores the lse.
+template <typename T, int D>
+int launch_d(const T* q, const T* k, const T* v, T* o, float* lse,
+             long long lse_ld, long long b, long long hq, long long hkv,
+             long long sq, long long skv, long long d, float scale,
+             long long causal, long long bq, long long parts, float* ws_acc,
+             float* ws_ml, cudaStream_t stream) {
+  if (parts > 1 && D < 32) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = attention_simt<T, D>;
+  const size_t smem = fwd_smem<T, D>(static_cast<int>(bq));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (sq + bq - 1) / bq * parts * b * hq;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), static_cast<unsigned>(4 * bq), smem,
+           stream>>>(q, k, v, o, lse, static_cast<int>(lse_ld),
+                     static_cast<int>(hq), static_cast<int>(hkv), b * hq,
+                     static_cast<int>(sq), static_cast<int>(skv),
+                     static_cast<int>(d), scale * kLog2e,
+                     static_cast<int>(causal), static_cast<int>(d % 4 == 0),
+                     static_cast<int>(parts), ws_acc, ws_ml);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  if constexpr (D >= 32) {
+    const long long rows = b * hq * sq;
+    auto combine = d == D ? split::attention_combine<T, D, false>
+                          : split::attention_combine<T, D, true>;
+    combine<<<dim3(static_cast<unsigned>(rows), D / 32), split::kThreads,
+              static_cast<size_t>(parts) * sizeof(float), stream>>>(
+        ws_acc, ws_ml, o, rows, static_cast<int>(parts), static_cast<int>(d),
+        lse, static_cast<int>(lse_ld), static_cast<int>(sq));
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int launch(const T* q, const T* k, const T* v, T* o, float* lse,
+           long long lse_ld, long long b, long long hq, long long hkv,
+           long long sq, long long skv, long long d, float scale,
+           long long causal, long long bq, long long parts, float* ws_acc,
+           float* ws_ml, void* stream_ptr) {
+  if (b == 0 || hq == 0 || sq == 0) return 0;
+  if ((bq != 16 && bq != 32 && bq != 64) || parts < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define WIDTH(D_)                                                         \
+  if (d <= D_)                                                            \
+    return launch_d<T, D_>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,  \
+                           d, scale, causal, bq, parts, ws_acc, ws_ml,    \
+                           stream);
+  WIDTH(16) WIDTH(32) WIDTH(64) WIDTH(128) WIDTH(192) WIDTH(256)
+#undef WIDTH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace simt_fwd
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
-template <int D>
-int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                 const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+template <typename T, int D>
+int launch_wgmma(const T* q, const T* k, const T* v, T* o, float* lse,
                  long long lse_ld, long long b, long long hq, long long hkv,
-                 long long sq, long long skv, float scale, long long causal,
-                 cudaStream_t stream) {
+                 long long sq, long long skv, long long d, float scale,
+                 long long causal, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
-  int rc = hopper::bf16_map(&tm_q, q, D, sq, b * hq, wg::kBQ);
-  if (rc == 0) rc = hopper::bf16_map(&tm_k, k, D, skv, b * hkv, wg::kBK);
-  if (rc == 0) rc = hopper::bf16_map(&tm_v, v, D, skv, b * hkv, wg::kBK);
+  int rc = hopper::tile_map<T>(&tm_q, q, d, sq, b * hq, wg::kBQ);
+  if (rc == 0) rc = hopper::tile_map<T>(&tm_k, k, d, skv, b * hkv, wg::kBK);
+  if (rc == 0) rc = hopper::tile_map<T>(&tm_v, v, d, skv, b * hkv, wg::kBK);
   if (rc != 0) return rc;
-  auto kernel = wg::attention_wgmma<D>;
+  auto kernel = wg::attention_wgmma<T, D>;
   const int smem = static_cast<int>(wg::Layout<D>::kBytes);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -806,8 +711,27 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                      static_cast<int>(hq),
                      static_cast<int>(hkv), static_cast<int>(b * hq),
                      static_cast<int>(sq), static_cast<int>(skv),
-                     scale * kLog2e, static_cast<int>(causal));
+                     static_cast<int>(d), scale * kLog2e,
+                     static_cast<int>(causal));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of width 64 (d <= 64) or 128; d % 8 == 0 (TMA's 16-byte
+// row pitch).
+template <typename T>
+int wgmma_d(const T* q, const T* k, const T* v, T* o, float* lse,
+            long long lse_ld, long long b, long long hq, long long hkv,
+            long long sq, long long skv, long long d, float scale,
+            long long causal, void* stream) {
+  if (b == 0 || hq == 0 || sq == 0) return 0;
+  if (d < 8 || d > 128 || d % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 64)
+    return launch_wgmma<T, 64>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,
+                               d, scale, causal, st);
+  return launch_wgmma<T, 128>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,
+                              d, scale, causal, st);
 }
 
 template <typename T, int D, bool kMasked>
@@ -845,7 +769,8 @@ int launch_split(const T* q, const T* k, const T* v, T* o, float* ws_acc,
         <<<dim3(static_cast<unsigned>(total_rows), D / 32), split::kThreads,
            static_cast<size_t>(n_split) * sizeof(float), stream>>>(
             ws_acc, ws_ml, o + b0 * hq * sq * d, total_rows,
-            static_cast<int>(n_split), static_cast<int>(d));
+            static_cast<int>(n_split), static_cast<int>(d), nullptr, 0,
+            static_cast<int>(sq));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     ws_acc += n_split * total_rows * d;
@@ -880,34 +805,46 @@ int split_d(const T* q, const T* k, const T* v, T* o, float* ws_acc,
 
 }  // namespace
 
-// "simt": the float32 prefill.
-extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* o, long long b,
-                                   long long hq, long long hkv, long long sq,
-                                   long long skv, long long d, float scale,
-                                   long long causal, long long bq,
-                                   long long bk, void* stream) {
-  return simt::launch<float>(q, k, v, o, b, hq, hkv, sq, skv, d, scale,
-                             causal, bq, bk, stream);
-}
+// "simt": prefill on the CUDA cores, float32, bfloat16 or float16 in
+// and out; bq (16, 32 or 64) query rows a CTA.  lse: null, or float32
+// rows of lse_ld >= Sq a (batch, query head) for each row's log-sum-exp
+// (base 2 of the scaled scores).  parts > 1 (d > 16): the key tiles of
+// each query tile split into parts; ws_acc holds parts·B·Hq·Sq·d floats
+// and ws_ml parts·B·Hq·Sq·2.
+#define SIMT_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(const T* q, const T* k, const T* v, T* o, float* lse, \
+                      long long lse_ld, long long b, long long hq,          \
+                      long long hkv, long long sq, long long skv,           \
+                      long long d, float scale, long long causal,           \
+                      long long bq, long long parts, float* ws_acc,         \
+                      float* ws_ml, void* stream) {                         \
+    return simt_fwd::launch<T>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv, \
+                               d, scale, causal, bq, parts, ws_acc, ws_ml,  \
+                               stream);                                     \
+  }
+SIMT_ENTRY(flash_attention_simt_f32, float)
+SIMT_ENTRY(flash_attention_simt_bf16, __nv_bfloat16)
+SIMT_ENTRY(flash_attention_simt_f16, __half)
+#undef SIMT_ENTRY
 
-// "wgmma": the bfloat16 prefill on the tensor cores.  lse: null, or
-// float32 rows of lse_ld >= Sq a (batch, query head) for each row's
-// log-sum-exp (base 2 of the scaled scores).
+// "wgmma": bfloat16 / float16 prefill on the tensor cores, d <= 128,
+// d % 8 == 0.  lse: null, or float32 rows of lse_ld >= Sq a (batch,
+// query head) for each row's log-sum-exp (base 2 of the scaled scores).
 extern "C" int flash_attention_wgmma_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     __nv_bfloat16* o, float* lse, long long lse_ld, long long b,
     long long hq, long long hkv, long long sq, long long skv, long long d,
     float scale, long long causal, void* stream) {
-  if (b == 0 || hq == 0 || sq == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_wgmma<64>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,
-                            scale, causal, st);
-  if (d == 128)
-    return launch_wgmma<128>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,
-                             scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wgmma_d<__nv_bfloat16>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv,
+                                d, scale, causal, stream);
+}
+
+extern "C" int flash_attention_wgmma_f16(
+    const __half* q, const __half* k, const __half* v, __half* o, float* lse,
+    long long lse_ld, long long b, long long hq, long long hkv, long long sq,
+    long long skv, long long d, float scale, long long causal, void* stream) {
+  return wgmma_d<__half>(q, k, v, o, lse, lse_ld, b, hq, hkv, sq, skv, d,
+                         scale, causal, stream);
 }
 
 // "split": short query blocks; ws_acc holds n_split·B·Hq·Sq·D floats and

@@ -2,7 +2,7 @@
 // Sq, D), k/v (B, Hkv, Skv, D), the forward's output o (B, Hq, Sq, D) and
 // its cotangent do (B, Hq, Sq, D), it writes dq (B, Hq, Sq, D) and dk/dv
 // (B, Hkv, Skv, D), dk and dv summed over the Hq/Hkv query heads of each
-// kv group.  float32 or bfloat16 in and out, float32 inside.
+// kv group.  float32, bfloat16 or float16 in and out, float32 inside.
 //
 // Replaces no TPU kernel: the JAX package's Pallas flash_attention
 // (src/repro/kernels/flash_attention.py) has no custom_vjp, and its models
@@ -14,500 +14,480 @@
 // j <= that position; a row that sees no key gets zero gradient and
 // gives none.
 //
-// Two paths, picked from the dtype and the head dim:
+// Two paths, picked from the dtype and the head dim (the wrapper's
+// `_bwd_plan`):
 //
-//   * "wgmma" — bfloat16 at head dims 64 and 128: TMA-fed warpgroup
-//     products on the tensor cores, the log-sum-exp from the forward
-//     (or recomputed by the dQ kernel), a causally balanced dK/dV grid;
-//     see namespace wg below.
-//   * "simt" — every other call (float32, other head dims): three
-//     kernels on the CUDA cores in float32, launched in order on the
-//     caller's stream:
-//
-//   (a) attention_bwd_preprocess — one CTA per (head, query tile):
-//       recomputes each row's log-sum-exp over its visible keys (the
-//       online max and sum of the forward, without the P·V product) and
-//       delta = rowsum(do ∘ o), both float32, into a workspace.  Only
-//       the forward's "wgmma" path writes an lse.
-//   (b) attention_bwd_dq — one CTA per (head, query tile), walking the
-//       kv tiles up to the causal band: P = exp(S - lse), dP = do·Vᵀ,
-//       dS = P ∘ (dP - delta), dQ += scale · dS·K.
-//   (c) attention_bwd_dkdv — one CTA per (kv head, kv tile), walking the
-//       G query heads of its group and, for each, the query tiles that
-//       see the kv tile: dV += Pᵀ·do, dK += scale · dSᵀ·Q.
+//   * "wgmma" — bfloat16 or float16 at head dims d <= 128 with
+//     d % 8 == 0 (instances of width 64 and 128, the tensor maps reading
+//     zeros past d): TMA-fed warpgroup products on the tensor cores, the
+//     log-sum-exp from the forward (or recomputed by the dQ kernel), a
+//     causally balanced dK/dV grid; see namespace wg below.
+//   * "simt" — every other call (float32; 16-bit types at d > 128 or
+//     d % 8 != 0): register-tiled products on the CUDA cores in float32
+//     fed by a cp.async ring (csrc/attention_simt.cuh), the lse from the
+//     forward (recomputed by attention_bwd_lse when none is given), a
+//     dK/dV grid split into parts that fills the SMs; see namespace
+//     simt_bwd below.  Instances at widths 16, 32, 64, 128, 192 and 256,
+//     a d between two taking the wider instance with its columns past d
+//     read as zeros and not written.
 //
 // No atomics on either path: every output element is written once by
-// one CTA (or, with "wgmma"'s head slices, summed from the slices'
-// partials in slice order), so the gradient is the same bits on every
-// run.  Bound on the H100: operations (seven products a visible (query,
-// key) pair on "wgmma" at D = 64, eight at D = 128 and on "simt").
-// "simt" runs them on the CUDA cores in float32, a 16 x 16 thread grid
-// computing register micro-tiles from shared memory
-// (rows padded by one float against bank conflicts); head dims:
-// instances at 32, 64, 128 and 256, a d between two taking the wider
-// instance with its columns past d read as zeros and not written; tiles
-// 64 x 64 up to D = 128 and 32 x 32 at 256 (shared memory).  Launches
-// are cut at 65,535 (batch, head) rows (the grid's y limit).  A kernel
-// that cannot launch returns its CUDA error; a tensor map that cannot be
-// encoded returns hopper::kNoEncoder or kBadTensorMap.
+// one CTA (or summed from float32 partials in a fixed order), so the
+// gradient is the same bits on every run.  Bound on the H100:
+// operations (seven products a visible (query, key) pair on "wgmma" at
+// D = 64, eight at D = 128, three more in float16 (kSplit); seven on
+// "simt", S and dP in each of the dQ and dK/dV kernels).  1-D grids, so any number of heads
+// launches once.  A kernel that cannot launch returns its CUDA error; a
+// tensor map that cannot be encoded returns hopper::kNoEncoder or
+// kBadTensorMap.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
 
+#include <type_traits>
+
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "attention_simt.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;            // a 16 x 16 thread grid
-constexpr int kSide = 16;
-constexpr float kNegInf = -1e30f;
-constexpr long long kMaxGridY = 65535;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Query and kv tile of an instance of width D.
-template <int D> struct Tile {
-  static constexpr int kQ = D <= 128 ? 64 : 32;
-  static constexpr int kK = D <= 128 ? 64 : 32;
-};
-
-// Sum or max over the 16 lanes of one thread-grid row (lanes ty·16 ..
-// ty·16 + 15 of a warp hold one query row's columns).
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = kSide / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = kSide / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// rows x D of a (.., D)-strided tensor into shared memory with row stride
-// D + 1, times `mul`; rows past `n_rows` and columns past d read zeros.
-template <typename T, int D, bool kMasked>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          long long row0, long long n_rows,
-                                          int rows, int d, float mul) {
-  const long long ld = kMasked ? d : D;
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const int rr = idx / D, dd = idx % D;
-    const bool in = row0 + rr < n_rows && (!kMasked || dd < d);
-    dst[rr * (D + 1) + dd] = in ? to_float(src[(row0 + rr) * ld + dd]) * mul
-                                : 0.0f;
-  }
-}
-
-// The kv head of flattened (batch, query head) row bh.
-__device__ __forceinline__ long long kv_head(long long bh, int hq, int hkv) {
-  return (bh / hq) * hkv + (bh % hq) / (hq / hkv);
-}
-
-// Key tiles a query tile [q0, q0 + BQ) walks: all of them, or, causal, up
-// to the last key its last row sees.
-__device__ __forceinline__ long long live_kv_tiles(long long q0, int bq,
-                                                   long long sq,
-                                                   long long skv, int bk,
-                                                   int causal) {
-  const long long n_kt = (skv + bk - 1) / bk;
-  if (!causal) return n_kt;
-  const long long q_last = min(q0 + bq - 1, sq - 1) + (skv - sq);
-  return q_last < 0 ? 0 : min(n_kt, q_last / bk + 1);
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// (a) lse and delta per query row
+// Both paths: delta, and the partial dK / dV sums
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_preprocess(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ o, const T* __restrict__ dout,
-                         float* __restrict__ lse, float* __restrict__ delta,
-                         int hq, int hkv, long long sq, long long skv, int d,
-                         float scale, int causal) {
-  constexpr int BQ = Tile<D>::kQ, BK = Tile<D>::kK;
-  constexpr int RI = BQ / kSide, CJ = BK / kSide;
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [BQ][D + 1], scaled
-  float* ks = qs + BQ * (D + 1);         // [BK][D + 1]
-
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const long long ld = kMasked ? d : D;
-  const long long q0 = static_cast<long long>(blockIdx.x) * BQ;
-  const long long bh = blockIdx.y;
-  const long long offset = skv - sq;
-  const T* qb = q + bh * sq * ld;
-  const T* kb = k + kv_head(bh, hq, hkv) * skv * ld;
-
-  // delta: 16 lanes a row, columns strided by 16.
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const long long row = q0 + ty + kSide * i;
+// Σ x·y over the 16 bytes of two loads of T.
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& x, const uint4& y) {
+  if constexpr (std::is_same<T, float>::value) {
+    return __uint_as_float(x.x) * __uint_as_float(y.x)
+           + __uint_as_float(x.y) * __uint_as_float(y.y)
+           + __uint_as_float(x.z) * __uint_as_float(y.z)
+           + __uint_as_float(x.w) * __uint_as_float(y.w);
+  } else {
+    const uint32_t a[4] = {x.x, x.y, x.z, x.w}, b[4] = {y.x, y.y, y.z, y.w};
     float acc = 0.0f;
-    if (row < sq) {
-      const long long at = (bh * sq + row) * ld;
-      for (int dd = tx; dd < d; dd += kSide)
-        acc += to_float(o[at + dd]) * to_float(dout[at + dd]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 u = hopper::unpack2<T>(a[i]), w = hopper::unpack2<T>(b[i]);
+      acc = fmaf(u.x, w.x, acc);
+      acc = fmaf(u.y, w.y, acc);
     }
-    acc = row_sum(acc);
-    if (tx == 0 && row < sq) delta[bh * sq + row] = acc;
+    return acc;
   }
+}
 
-  load_rows<T, D, kMasked>(qs, qb, q0, sq, BQ, d, scale);
-  float m[RI], l[RI];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) { m[i] = kNegInf; l[i] = 0.0f; }
-
-  const long long n_live = live_kv_tiles(q0, BQ, sq, skv, BK, causal);
-  for (long long kt = 0; kt < n_live; ++kt) {
-    const long long k0 = kt * BK;
-    __syncthreads();                     // previous tile's reads done
-    load_rows<T, D, kMasked>(ks, kb, k0, skv, BK, d, 1.0f);
-    __syncthreads();
-    float s[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; ++dd) {
-      float qv[RI], kv[CJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) qv[i] = qs[(ty + kSide * i) * (D + 1) + dd];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kv[j] = ks[(tx + kSide * j) * (D + 1) + dd];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) s[i][j] += qv[i] * kv[j];
+// delta = rowsum(dO ∘ O) in float32, into rows of lse_ld: 8 lanes a row,
+// 16 bytes a lane a step where rows are 16-byte multiples (vec), else one
+// element; bound by bytes, it reads O and dO once.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, long long rows, int sq, int d,
+                    int lse_ld, int vec) {
+  constexpr int kE = 16 / sizeof(T);
+  const int sub = threadIdx.x % 8;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / 8;
+  float acc = 0.0f;
+  if (row < rows) {
+    const T* a = o + row * d;
+    const T* b = dout + row * d;
+    if (vec) {
+      for (int c = sub * kE; c < d; c += 8 * kE)
+        acc += dot16<T>(__ldg(reinterpret_cast<const uint4*>(a + c)),
+                        __ldg(reinterpret_cast<const uint4*>(b + c)));
+    } else {
+      for (int c = sub; c < d; c += 8)
+        acc = fmaf(simt::to_f(a[c]), simt::to_f(b[c]), acc);
     }
+  }
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const long long qpos = q0 + ty + kSide * i + offset;
-      float mx = kNegInf;
-      bool ok[CJ];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const long long kpos = k0 + tx + kSide * j;
-        ok[j] = kpos < skv && (!causal || qpos >= kpos);
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
+  for (int x = 4; x > 0; x >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, x);
+  if (row < rows && sub == 0) delta[(row / sq) * lse_ld + row % sq] = acc;
+}
+
+// `outs` (1 or 2) tensors of n elements, a then b, from `slices`
+// float32 partials (slice-major: slice s's partial of a at outs·s·n, of
+// b at (outs·s + 1)·n), summed in slice order: no atomics, the same bits
+// on every run.  dK and dV of the dK/dV kernels' slices or parts; dQ of
+// the simt dQ kernel's parts.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attention_bwd_slice_sum(const float* __restrict__ ws, T* __restrict__ dk,
+                        T* __restrict__ dv, long long n, int slices,
+                        int outs) {
+  const long long start = static_cast<long long>(blockIdx.x) * 256
+                          + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * 256;
+  if (n % 4 == 0) {
+    const long long n4 = n / 4;
+    const float4* w = reinterpret_cast<const float4*>(ws);
+    for (long long i = start; i < outs * n4; i += step) {
+      float4 acc = w[i];
+      for (int s = 1; s < slices; ++s) {
+        const float4 x = w[outs * s * n4 + i];
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
       }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) sum += ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-      sum = row_sum(sum);
-      l[i] = l[i] * expf(m[i] - m_new) + sum;
-      m[i] = m_new;
+      T* out = i < n4 ? dk + 4 * i : dv + 4 * (i - n4);
+      out[0] = simt::from_f<T>(acc.x);
+      out[1] = simt::from_f<T>(acc.y);
+      out[2] = simt::from_f<T>(acc.z);
+      out[3] = simt::from_f<T>(acc.w);
     }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const long long row = q0 + ty + kSide * i;
-      // A row that sees no key: lse = +inf, so every P of it is 0.
-      if (row < sq)
-        lse[bh * sq + row] = l[i] > 0.0f ? m[i] + logf(l[i]) : INFINITY;
+  } else {
+    for (long long i = start; i < outs * n; i += step) {
+      float acc = ws[i];
+      for (int s = 1; s < slices; ++s) acc += ws[outs * s * n + i];
+      (i < n ? dk[i] : dv[i - n]) = simt::from_f<T>(acc);
     }
   }
 }
 
-// S = (scale·Q)·Kᵀ and dP = dO·Vᵀ of one (query tile, kv tile), then
-// P = exp(S - lse) and dS = P ∘ (dP - delta), masked, into registers.
-template <int D, int BQ, int BK>
-__device__ __forceinline__ void tile_probs(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* lse_s, const float* delta_s, long long q0, long long k0,
-    long long offset, long long skv, int causal, int tx, int ty,
-    float (&p)[BQ / kSide][BK / kSide], float (&ds)[BQ / kSide][BK / kSide]) {
-  constexpr int RI = BQ / kSide, CJ = BK / kSide;
-  float s[RI][CJ], dp[RI][CJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) { s[i][j] = 0.0f; dp[i][j] = 0.0f; }
-#pragma unroll 2
-  for (int dd = 0; dd < D; ++dd) {
-    float qv[RI], dv[RI], kv[CJ], vv[CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      qv[i] = qs[(ty + kSide * i) * (D + 1) + dd];
-      dv[i] = dos[(ty + kSide * i) * (D + 1) + dd];
-    }
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      kv[j] = ks[(tx + kSide * j) * (D + 1) + dd];
-      vv[j] = vs[(tx + kSide * j) * (D + 1) + dd];
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        s[i][j] += qv[i] * kv[j];
-        dp[i][j] += dv[i] * vv[j];
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty + kSide * i;
-    const long long qpos = q0 + r + offset;
-    const float row_lse = lse_s[r], row_delta = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const long long kpos = k0 + tx + kSide * j;
-      const bool ok = kpos < skv && (!causal || qpos >= kpos);
-      p[i][j] = ok ? expf(s[i][j] - row_lse) : 0.0f;
-      ds[i][j] = p[i][j] * (dp[i][j] - row_delta);
-    }
-  }
+template <typename T>
+int launch_delta(const T* o, const T* dout, float* delta, long long rows,
+                 long long sq, long long d, long long lse_ld,
+                 cudaStream_t stream) {
+  attention_bwd_delta<T><<<static_cast<unsigned>((rows + 31) / 32), 256, 0,
+                           stream>>>(
+      o, dout, delta, rows, static_cast<int>(sq), static_cast<int>(d),
+      static_cast<int>(lse_ld), static_cast<int>(d * sizeof(T) % 16 == 0));
+  return static_cast<int>(cudaGetLastError());
 }
 
-// lse and delta of rows [row0, row0 + rows) into shared memory; rows past
-// sq get lse = +inf (P = 0).
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
-                                               const float* lse,
-                                               const float* delta,
-                                               long long base, long long row0,
-                                               long long sq, int rows) {
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
-    const bool in = row0 + r < sq;
-    lse_s[r] = in ? lse[base + row0 + r] : INFINITY;
-    delta_s[r] = in ? delta[base + row0 + r] : 0.0f;
-  }
+template <typename T>
+int launch_slice_sum(const float* ws, T* dk, T* dv, long long n,
+                     long long slices, cudaStream_t stream, int outs = 2) {
+  const long long blocks = std::min((outs * n / 4 + 255) / 256, 132LL * 16);
+  attention_bwd_slice_sum<T><<<static_cast<unsigned>(std::max(1LL, blocks)),
+                               256, 0, stream>>>(
+      ws, dk, dv, n, static_cast<int>(slices), outs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// (b) dQ: one CTA per (batch·query head, query tile)
+// "simt": the CUDA cores, float32 inside (csrc/attention_simt.cuh)
 // ---------------------------------------------------------------------------
+//
+// lse and delta are float32 rows of lse_ld (Sq rounded up to 128) a
+// (batch, query head), as on "wgmma".  A call runs, in order:
+//
+//   (a) attention_bwd_delta (above).
+//   (a') attention_bwd_lse — only when no lse is given: the forward's
+//        online max and sum (simt::forward without V), storing the lse.
+//   (b) attention_bwd_dq_simt — one CTA of 4·bq threads per (batch·query
+//       head, query tile of bq rows, part of its key tiles), Q (scaled by
+//       scale·log2 e) and dO resident, a cp.async ring of (K, V) tiles:
+//       S = Q·Kᵀ, dP = dO·Vᵀ (register-tiled, 4 rows x the keys
+//       tx + 16·j a thread), P = exp2(S − lse), dS = P ∘ (dP − delta)
+//       through shared memory, dQ += dS·K (4 rows x the thread's
+//       columns).  With more than one part, float32 partials that
+//       attention_bwd_slice_sum adds in part order.
+//   (c) attention_bwd_dkdv_simt — one CTA of 256 threads per (key tile,
+//       part, batch·kv head), K and V resident, a cp.async ring of
+//       (Q, dO, lse, delta) tiles over the part's share of the (query
+//       head of the group, query tile that sees the keys) items:
+//       Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, Pᵀ and dSᵀ through shared memory,
+//       dV += Pᵀ·dO, dK += dSᵀ·Q.  With one part the CTA writes dK and
+//       dV; with more, float32 partials that
+//   (d) attention_bwd_slice_sum adds in part order.
+//
+// The wrapper's `_bwd_plan` picks the dK/dV parts (enough CTAs for two
+// an SM, the longest no more than an SM's even share) and dQ's query
+// tile and parts.
 
-template <typename T, int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, int hq,
-                 int hkv, long long sq, long long skv, int d, float scale,
-                 int causal) {
-  constexpr int BQ = Tile<D>::kQ, BK = Tile<D>::kK;
-  constexpr int RI = BQ / kSide, CJ = BK / kSide, EJ = D / kSide;
-  extern __shared__ float smem[];
-  float* qs = smem;                      // [BQ][D + 1], scaled
-  float* dos = qs + BQ * (D + 1);        // [BQ][D + 1]
-  float* ks = dos + BQ * (D + 1);        // [BK][D + 1]
-  float* vs = ks + BK * (D + 1);         // [BK][D + 1]
-  float* dss = vs + BK * (D + 1);        // [BQ][BK + 1]
-  float* lse_s = dss + BQ * (BK + 1);    // [BQ]
-  float* delta_s = lse_s + BQ;           // [BQ]
+namespace simt_bwd {
 
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const long long ld = kMasked ? d : D;
-  const long long q0 = static_cast<long long>(blockIdx.x) * BQ;
-  const long long bh = blockIdx.y;
-  const long long offset = skv - sq;
+using namespace ::simt;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256, Cfg<D>::kMinBlocks)
+attention_bwd_lse(const T* __restrict__ q, const T* __restrict__ k,
+                  float* __restrict__ lse, int lse_ld, int hq, int hkv,
+                  long long n_bh, int sq, int skv, int d, float scale_log2,
+                  int causal, int vec) {
+  forward<T, D>(q, k, nullptr, nullptr, lse, lse_ld, hq, hkv, n_bh, sq, skv,
+                d, scale_log2, causal, vec != 0);
+}
+
+template <typename T, int D>
+constexpr size_t dq_smem(int bq) {
+  using C = Cfg<D>;
+  return sizeof(float) * bq * (2 * C::kLd + C::kDqKeys + kPad)
+         + sizeof(T) * 2 * 2 * C::kDqKeys * C::kLd;
+}
+
+// 1-D grid of (query tiles) x (parts) x (B·Hq), as the forward;
+// blockDim.x = 4·bq.  With parts > 1 a CTA walks its part of the key
+// tiles and writes float32 partials of dQ (part-major, rows of d) to ws,
+// summed in part order by attention_bwd_slice_sum.
+template <typename T, int D>
+__global__ void __launch_bounds__(256, Cfg<D>::kDqMinBlocks)
+attention_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dq,
+                      float* __restrict__ ws, int hq, int hkv,
+                      long long n_bh, int sq, int skv, int d, int lse_ld,
+                      int parts, float scale, float scale_log2, int causal,
+                      int vec) {
+  using C = Cfg<D>;
+  constexpr int kLd = C::kLd, BK = C::kDqKeys, CN = BK / kLanes;
+  constexpr int kPl = BK + kPad;
+  constexpr int kStage = 2 * BK * kLd;             // T elements: K, then V
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bq = blockDim.x / kRows;
+  float* qs = reinterpret_cast<float*>(smem);      // [bq][kLd], scaled
+  float* dos = qs + bq * kLd;                      // [bq][kLd]
+  float* dss = dos + bq * kLd;                     // [bq][kPl]
+  T* ring = reinterpret_cast<T*>(dss + bq * kPl);  // 2 stages
+
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  const QueryTile qt = query_tile(bq, sq, n_bh, parts);
+  const int q0 = qt.q0;
+  const long long bh = qt.bh;
   const long long kvh = kv_head(bh, hq, hkv);
-  const T* kb = k + kvh * skv * ld;
-  const T* vb = v + kvh * skv * ld;
+  const int offset = skv - sq;
+  const T* kb = k + kvh * skv * d;
+  const T* vb = v + kvh * skv * d;
+  const TileRange range =
+      part_range(live_tiles(q0, bq, sq, skv, BK, causal), qt.part, parts);
+  const bool vec_ok = vec != 0;
 
-  load_rows<T, D, kMasked>(qs, q + bh * sq * ld, q0, sq, BQ, d, scale);
-  load_rows<T, D, kMasked>(dos, dout + bh * sq * ld, q0, sq, BQ, d, 1.0f);
-  load_row_stats(lse_s, delta_s, lse, delta, bh * sq, q0, sq, BQ);
+  auto issue = [&](int t) {
+    if (t < range.end) {
+      T* st = ring + (t & 1) * kStage;
+      const long long k0 = static_cast<long long>(t) * BK;
+      load_tile<T, D>(st, kb, k0, skv, BK, d, vec_ok);
+      load_tile<T, D>(st + BK * kLd, vb, k0, skv, BK, d, vec_ok);
+    }
+    hopper::cp_async_commit();
+  };
+  issue(range.first);
+  load_rows<T, D>(qs, q + bh * sq * d, q0, sq, bq, d, scale_log2);
+  load_rows<T, D>(dos, dout + bh * sq * d, q0, sq, bq, d, 1.0f);
 
-  float acc[RI][EJ];
+  const int r0 = ty * kRows;
+  float row_lse[kRows], row_delta[kRows], acc[kRows][C::kCols];
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + r0 + i;
+    row_lse[i] = row < sq ? lse[bh * lse_ld + row] : INFINITY;
+    row_delta[i] = row < sq ? delta[bh * lse_ld + row] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < EJ; ++j) acc[i][j] = 0.0f;
+    for (int e = 0; e < C::kCols; ++e) acc[i][e] = 0.0f;
+  }
 
-  const long long n_live = live_kv_tiles(q0, BQ, sq, skv, BK, causal);
-  for (long long kt = 0; kt < n_live; ++kt) {
-    const long long k0 = kt * BK;
-    __syncthreads();                     // previous tile's reads done
-    load_rows<T, D, kMasked>(ks, kb, k0, skv, BK, d, 1.0f);
-    load_rows<T, D, kMasked>(vs, vb, k0, skv, BK, d, 1.0f);
-    __syncthreads();
-    float p[RI][CJ], ds[RI][CJ];
-    tile_probs<D, BQ, BK>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, offset,
-                          skv, causal, tx, ty, p, ds);
+  for (int t = range.first; t < range.end; ++t) {
+    issue(t + 1);
+    hopper::cp_async_wait<1>();
+    __syncthreads();                       // tile t (and Q, dO) in place
+    const T* ks = ring + (t & 1) * kStage;
+    float sc[kRows][CN], dp[kRows][CN];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        dss[(ty + kSide * i) * (BK + 1) + tx + kSide * j] = ds[i][j];
-    __syncthreads();
-    // dQ[r][e] += Σ_c dS[r][c] · K[c][e]
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float kv[EJ];
+      for (int j = 0; j < CN; ++j) {
+        sc[i][j] = 0.0f;
+        dp[i][j] = 0.0f;
+      }
+    dot_rows<D, kRows, CN>(sc, qs + r0 * kLd, ks, tx);
+    dot_rows<D, kRows, CN>(dp, dos + r0 * kLd, ks + BK * kLd, tx);
+    const int k0 = t * BK;
 #pragma unroll
-      for (int j = 0; j < EJ; ++j) kv[j] = ks[c * (D + 1) + tx + kSide * j];
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + r0 + i, pos = row + offset;
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float dsv = dss[(ty + kSide * i) * (BK + 1) + c];
-#pragma unroll
-        for (int j = 0; j < EJ; ++j) acc[i][j] += dsv * kv[j];
+      for (int j = 0; j < CN; ++j) {
+        const int kpos = k0 + tx + kLanes * j;
+        const bool ok = row < sq && kpos < skv && (!causal || kpos <= pos);
+        const float p = ok ? exp2f(sc[i][j] - row_lse[i]) : 0.0f;
+        dss[(r0 + i) * kPl + tx + kLanes * j] =
+            ok ? p * (dp[i][j] - row_delta[i]) : 0.0f;
       }
     }
+    __syncthreads();                       // the tile's dS in place
+    acc_cols<D, BK, kRows>(acc, dss + r0 * kPl, kPl, ks, tx);
+    __syncthreads();                       // stage t & 1 and dS read
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const long long row = q0 + ty + kSide * i;
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + r0 + i;
     if (row >= sq) continue;
-    T* out = dq + (bh * sq + row) * ld;
+    const long long at = (bh * sq + row) * d;
+    float* part = ws + qt.part * n_bh * sq * d + at;
 #pragma unroll
-    for (int j = 0; j < EJ; ++j) {
-      const int col = tx + kSide * j;
-      if (!kMasked || col < d) out[col] = from_float<T>(acc[i][j] * scale);
-    }
+    for (int ch = 0; ch < C::kNch; ++ch)
+#pragma unroll
+      for (int e = 0; e < C::kCe; ++e) {
+        const int col = out_col<D>(tx, ch, e);
+        if (col >= d) continue;
+        const float x = acc[i][C::kCe * ch + e] * scale;
+        if (parts == 1) {
+          dq[at + col] = from_f<T>(x);
+        } else {
+          part[col] = x;
+        }
+      }
   }
 }
 
-// ---------------------------------------------------------------------------
-// (c) dK, dV: one CTA per (batch·kv head, kv tile)
-// ---------------------------------------------------------------------------
+template <typename T, int D>
+constexpr size_t dkdv_smem() {
+  using C = Cfg<D>;
+  return sizeof(float) * (2 * C::kKeys * (C::kLd + C::kQRows + kPad)
+                          + 2 * 2 * C::kQRows)
+         + sizeof(T) * 2 * 2 * C::kQRows * C::kLd;
+}
 
-template <typename T, int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int hq, int hkv, long long sq,
-                   long long skv, int d, float scale, int causal) {
-  constexpr int BQ = Tile<D>::kQ, BK = Tile<D>::kK;
-  constexpr int RI = BQ / kSide, CJ = BK / kSide, EJ = D / kSide;
-  extern __shared__ float smem[];
-  float* ks = smem;                      // [BK][D + 1]
-  float* vs = ks + BK * (D + 1);         // [BK][D + 1]
-  float* qs = vs + BK * (D + 1);         // [BQ][D + 1], scaled
-  float* dos = qs + BQ * (D + 1);        // [BQ][D + 1]
-  float* ps = dos + BQ * (D + 1);        // [BQ][BK + 1]
-  float* dss = ps + BQ * (BK + 1);       // [BQ][BK + 1]
-  float* lse_s = dss + BQ * (BK + 1);    // [BQ]
-  float* delta_s = lse_s + BQ;           // [BQ]
+// 1-D grid: block b is (key tile b / (n_bkv·parts), part, batch·kv head
+// b % n_bkv); 256 threads, 16 row groups of kKeyRows keys.
+template <typename T, int D>
+__global__ void __launch_bounds__(256, Cfg<D>::kMinBlocks)
+attention_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, float* __restrict__ ws, int hq,
+                        int hkv, int n_bkv, int sq, int skv, int d,
+                        int lse_ld, int parts, float scale, float scale_log2,
+                        int causal, int vec) {
+  using C = Cfg<D>;
+  constexpr int kLd = C::kLd, RK = C::kKeyRows, BKV = C::kKeys;
+  constexpr int BQ = C::kQRows, CN = BQ / kLanes, kPl = BQ + kPad;
+  constexpr int kStage = 2 * BQ * kLd;             // T elements: Q, then dO
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);      // [BKV][kLd]
+  float* vs = ks + BKV * kLd;                      // [BKV][kLd]
+  float* ps = vs + BKV * kLd;                      // [BKV][kPl]
+  float* dss = ps + BKV * kPl;                     // [BKV][kPl]
+  float* stats = dss + BKV * kPl;                  // 2 stages x (lse, delta)
+  T* ring = reinterpret_cast<T*>(stats + 2 * 2 * BQ);
 
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const long long ld = kMasked ? d : D;
-  const long long k0 = static_cast<long long>(blockIdx.x) * BK;
-  const long long bkv = blockIdx.y;      // batch · hkv + kv head
-  const long long batch = bkv / hkv, kvh = bkv % hkv;
+  const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
+  const int bkv = static_cast<int>(blockIdx.x % n_bkv);
+  const int part = static_cast<int>(blockIdx.x / n_bkv % parts);
+  const int k0 = static_cast<int>(blockIdx.x / n_bkv / parts) * BKV;
   const int group = hq / hkv;
-  const long long offset = skv - sq;
+  const int batch = bkv / hkv, kvh = bkv % hkv;
+  const int offset = skv - sq;
+  // The query tiles that see key k0 (row i sees it iff i + offset >= k0),
+  // times the group's heads: the items, split evenly over the parts.
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int qt0 = causal ? min(n_qt, max(0, k0 - offset) / BQ) : 0;
+  const int n_q = n_qt - qt0;
+  const int n_items = group * n_q;
+  const int per = (n_items + parts - 1) / parts;
+  const int it0 = min(n_items, part * per), it1 = min(n_items, it0 + per);
+  const bool vec_ok = vec != 0;
 
-  load_rows<T, D, kMasked>(ks, k + bkv * skv * ld, k0, skv, BK, d, 1.0f);
-  load_rows<T, D, kMasked>(vs, v + bkv * skv * ld, k0, skv, BK, d, 1.0f);
-
-  float acc_k[CJ][EJ], acc_v[CJ][EJ];
-#pragma unroll
-  for (int i = 0; i < CJ; ++i)
-#pragma unroll
-    for (int j = 0; j < EJ; ++j) { acc_k[i][j] = 0.0f; acc_v[i][j] = 0.0f; }
-
-  // The first query row that sees key k0: row i sees it iff
-  // i + offset >= k0.
-  const long long n_qt = (sq + BQ - 1) / BQ;
-  long long qt0 = 0;
-  if (causal) {
-    const long long first = k0 - offset;
-    qt0 = first <= 0 ? 0 : first / BQ;
-  }
-  for (int g = 0; g < group; ++g) {
-    const long long bh = batch * hq + kvh * group + g;
-    const T* qb = q + bh * sq * ld;
-    const T* db = dout + bh * sq * ld;
-    for (long long qt = qt0; qt < n_qt; ++qt) {
-      const long long q0 = qt * BQ;
-      __syncthreads();                   // previous tile's reads done
-      load_rows<T, D, kMasked>(qs, qb, q0, sq, BQ, d, scale);
-      load_rows<T, D, kMasked>(dos, db, q0, sq, BQ, d, 1.0f);
-      load_row_stats(lse_s, delta_s, lse, delta, bh * sq, q0, sq, BQ);
-      __syncthreads();
-      float p[RI][CJ], ds[RI][CJ];
-      tile_probs<D, BQ, BK>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, offset,
-                            skv, causal, tx, ty, p, ds);
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          const int at = (ty + kSide * i) * (BK + 1) + tx + kSide * j;
-          ps[at] = p[i][j];
-          dss[at] = ds[i][j];
-        }
-      __syncthreads();
-      // dV[c][e] += Σ_r P[r][c] · dO[r][e];
-      // dK[c][e] += Σ_r dS[r][c] · (scale·Q)[r][e]
-#pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
-        float dov[EJ], qv[EJ];
-#pragma unroll
-        for (int j = 0; j < EJ; ++j) {
-          dov[j] = dos[r * (D + 1) + tx + kSide * j];
-          qv[j] = qs[r * (D + 1) + tx + kSide * j];
-        }
-#pragma unroll
-        for (int i = 0; i < CJ; ++i) {
-          const float pv = ps[r * (BK + 1) + ty + kSide * i];
-          const float dsv = dss[r * (BK + 1) + ty + kSide * i];
-#pragma unroll
-          for (int j = 0; j < EJ; ++j) {
-            acc_v[i][j] += pv * dov[j];
-            acc_k[i][j] += dsv * qv[j];
-          }
-        }
+  auto issue = [&](int it) {
+    if (it < it1) {
+      const int s = it & 1;
+      const long long bh =
+          static_cast<long long>(batch) * hq + kvh * group + it / n_q;
+      const long long row0 = static_cast<long long>(qt0 + it % n_q) * BQ;
+      T* st = ring + s * kStage;
+      load_tile<T, D>(st, q + bh * sq * d, row0, sq, BQ, d, vec_ok);
+      load_tile<T, D>(st + BQ * kLd, dout + bh * sq * d, row0, sq, BQ, d,
+                      vec_ok);
+      float* stat = stats + s * 2 * BQ;
+      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
+        const bool in = row0 + i < sq;
+        stat[i] = in ? lse[bh * lse_ld + row0 + i] : INFINITY;
+        stat[BQ + i] = in ? delta[bh * lse_ld + row0 + i] : 0.0f;
       }
     }
-  }
+    hopper::cp_async_commit();
+  };
+  issue(it0);
+  const long long kv_base = static_cast<long long>(bkv) * skv * d;
+  load_rows<T, D>(ks, k + kv_base, k0, skv, BKV, d, 1.0f);
+  load_rows<T, D>(vs, v + kv_base, k0, skv, BKV, d, 1.0f);
 
+  const int r0 = ty * RK;                          // the thread's keys
+  float acc_k[RK][C::kCols], acc_v[RK][C::kCols];
 #pragma unroll
-  for (int i = 0; i < CJ; ++i) {
-    const long long row = k0 + ty + kSide * i;
-    if (row >= skv) continue;
-    T* outk = dk + (bkv * skv + row) * ld;
-    T* outv = dv + (bkv * skv + row) * ld;
+  for (int i = 0; i < RK; ++i)
 #pragma unroll
-    for (int j = 0; j < EJ; ++j) {
-      const int col = tx + kSide * j;
-      if (!kMasked || col < d) {
-        outk[col] = from_float<T>(acc_k[i][j]);
-        outv[col] = from_float<T>(acc_v[i][j]);
+    for (int e = 0; e < C::kCols; ++e) {
+      acc_k[i][e] = 0.0f;
+      acc_v[i][e] = 0.0f;
+    }
+
+  for (int it = it0; it < it1; ++it) {
+    issue(it + 1);
+    hopper::cp_async_wait<1>();
+    __syncthreads();                       // item it (and K, V) in place
+    const int s = it & 1;
+    const T* qts = ring + s * kStage;
+    const T* dots = qts + BQ * kLd;
+    const float* lse_t = stats + s * 2 * BQ;
+    const float* delta_t = lse_t + BQ;
+    const int row0 = (qt0 + it % n_q) * BQ;
+    float st[RK][CN], dpt[RK][CN];
+#pragma unroll
+    for (int i = 0; i < RK; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        st[i][j] = 0.0f;
+        dpt[i][j] = 0.0f;
+      }
+    dot_rows<D, RK, CN>(st, ks + r0 * kLd, qts, tx);
+    dot_rows<D, RK, CN>(dpt, vs + r0 * kLd, dots, tx);
+#pragma unroll
+    for (int i = 0; i < RK; ++i) {
+      const int key = k0 + r0 + i;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        const int c = tx + kLanes * j, qi = row0 + c;
+        const bool ok = qi < sq && key < skv && (!causal || key <= qi + offset);
+        const float p = ok ? exp2f(fmaf(st[i][j], scale_log2, -lse_t[c]))
+                           : 0.0f;
+        ps[(r0 + i) * kPl + c] = p;
+        dss[(r0 + i) * kPl + c] = ok ? p * (dpt[i][j] - delta_t[c]) : 0.0f;
       }
     }
+    __syncthreads();                       // the item's Pᵀ and dSᵀ in place
+    acc_cols<D, BQ, RK>(acc_v, ps + r0 * kPl, kPl, dots, tx);
+    acc_cols<D, BQ, RK>(acc_k, dss + r0 * kPl, kPl, qts, tx);
+    __syncthreads();                       // stage s, Pᵀ and dSᵀ read
   }
-}
 
-template <int D> constexpr size_t pre_smem() {
-  return sizeof(float) * (Tile<D>::kQ + Tile<D>::kK) * (D + 1);
-}
-template <int D> constexpr size_t dq_smem() {
-  constexpr int BQ = Tile<D>::kQ, BK = Tile<D>::kK;
-  return sizeof(float) *
-         ((2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-}
-template <int D> constexpr size_t dkdv_smem() {
-  constexpr int BQ = Tile<D>::kQ, BK = Tile<D>::kK;
-  return sizeof(float) *
-         ((2 * BQ + 2 * BK) * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
+  const long long n = static_cast<long long>(n_bkv) * skv * d;
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int key = k0 + r0 + i;
+    if (key >= skv) continue;
+    const long long at = kv_base + static_cast<long long>(key) * d;
+#pragma unroll
+    for (int ch = 0; ch < C::kNch; ++ch)
+#pragma unroll
+      for (int e = 0; e < C::kCe; ++e) {
+        const int col = out_col<D>(tx, ch, e);
+        if (col >= d) continue;
+        const float xk = acc_k[i][C::kCe * ch + e] * scale;
+        const float xv = acc_v[i][C::kCe * ch + e];
+        if (parts == 1) {
+          dk[at + col] = from_f<T>(xk);
+          dv[at + col] = from_f<T>(xv);
+        } else {
+          ws[2 * part * n + at + col] = xk;
+          ws[(2 * part + 1) * n + at + col] = xv;
+        }
+      }
+  }
 }
 
 template <typename K>
@@ -517,53 +497,94 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D, bool kMasked>
+// ws: the dK/dV parts' partials (2·parts·B·Hkv·Skv·d floats) when
+// parts > 1, then dQ's (q_parts·B·Hq·Sq·d) when q_parts > 1.
+template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, const T* o, const T* dout,
-             T* dq, T* dk, T* dv, float* lse, float* delta, long long b,
-             long long hq, long long hkv, long long sq, long long skv,
-             long long d, float scale, long long causal,
-             cudaStream_t stream) {
-  constexpr int BQ = Tile<D>::kQ, BK = Tile<D>::kK;
-  auto pre = attention_bwd_preprocess<T, D, kMasked>;
-  auto kdq = attention_bwd_dq<T, D, kMasked>;
-  auto kdkdv = attention_bwd_dkdv<T, D, kMasked>;
-  cudaError_t err = allow_smem(pre, pre_smem<D>());
-  if (err == cudaSuccess) err = allow_smem(kdq, dq_smem<D>());
-  if (err == cudaSuccess) err = allow_smem(kdkdv, dkdv_smem<D>());
-  if (err != cudaSuccess) return static_cast<int>(err);
+             T* dq, T* dk, T* dv, float* lse, float* delta, float* ws,
+             long long b, long long hq, long long hkv, long long sq,
+             long long skv, long long d, long long lse_ld, float scale,
+             long long causal, long long have_lse, long long parts,
+             long long bq, long long q_parts, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const long long bhq = b * hq, bhkv = b * hkv;
   const int ih = static_cast<int>(hq), ik = static_cast<int>(hkv);
-  const int id = static_cast<int>(d), ic = static_cast<int>(causal);
-  // Batches cut into launches of at most 65,535 (batch, head) rows.
-  const long long step = std::max(1LL, kMaxGridY / hq);
-  for (long long b0 = 0; b0 < b; b0 += step) {
-    const long long nb = std::min(step, b - b0);
-    const long long qoff = b0 * hq * sq * d, koff = b0 * hkv * skv * d;
-    const long long roff = b0 * hq * sq;
-    const dim3 qgrid(static_cast<unsigned>((sq + BQ - 1) / BQ),
-                     static_cast<unsigned>(nb * hq));
-    const dim3 kgrid(static_cast<unsigned>((skv + BK - 1) / BK),
-                     static_cast<unsigned>(nb * hkv));
-    pre<<<qgrid, kThreads, pre_smem<D>(), stream>>>(
-        q + qoff, k + koff, o + qoff, dout + qoff, lse + roff, delta + roff,
-        ih, ik, sq, skv, id, scale, ic);
-    err = cudaGetLastError();
+  const int isq = static_cast<int>(sq), iskv = static_cast<int>(skv);
+  const int id = static_cast<int>(d), ild = static_cast<int>(lse_ld);
+  const int ic = static_cast<int>(causal), vec = d % 4 == 0;
+  const float sl2 = scale * kLog2e;
+  int rc = launch_delta<T>(o, dout, delta, bhq * sq, sq, d, lse_ld, stream);
+  if (rc != 0) return rc;
+  const long long q_blocks = (sq + bq - 1) / bq * bhq;
+  const long long dq_blocks = q_blocks * q_parts;
+  float* ws_q = ws + (parts > 1 ? 2 * parts * bhkv * skv * d : 0);
+  const long long kv_blocks = (skv + C::kKeys - 1) / C::kKeys * parts * bhkv;
+  if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned threads = static_cast<unsigned>(4 * bq);
+  cudaError_t err;
+  if (!have_lse) {
+    const size_t smem = fwd_smem<T, D>(static_cast<int>(bq));
+    err = allow_smem(attention_bwd_lse<T, D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kdq<<<qgrid, kThreads, dq_smem<D>(), stream>>>(
-        q + qoff, k + koff, v + koff, dout + qoff, lse + roff, delta + roff,
-        dq + qoff, ih, ik, sq, skv, id, scale, ic);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kdkdv<<<kgrid, kThreads, dkdv_smem<D>(), stream>>>(
-        q + qoff, k + koff, v + koff, dout + qoff, lse + roff, delta + roff,
-        dk + koff, dv + koff, ih, ik, sq, skv, id, scale, ic);
+    attention_bwd_lse<T, D><<<static_cast<unsigned>(q_blocks), threads, smem,
+                              stream>>>(q, k, lse, ild, ih, ik, bhq, isq,
+                                        iskv, id, sl2, ic, vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  const size_t smem_dq = dq_smem<T, D>(static_cast<int>(bq));
+  err = allow_smem(attention_bwd_dq_simt<T, D>, smem_dq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_dq_simt<T, D><<<static_cast<unsigned>(dq_blocks), threads,
+                                smem_dq, stream>>>(
+      q, k, v, dout, lse, delta, dq, ws_q, ih, ik, bhq, isq, iskv, id, ild,
+      static_cast<int>(q_parts), scale, sl2, ic, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (q_parts > 1) {
+    rc = launch_slice_sum<T>(ws_q, dq, nullptr, bhq * sq * d, q_parts,
+                             stream, 1);
+    if (rc != 0) return rc;
+  }
+  const size_t smem_kv = dkdv_smem<T, D>();
+  err = allow_smem(attention_bwd_dkdv_simt<T, D>, smem_kv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_dkdv_simt<T, D><<<static_cast<unsigned>(kv_blocks), 256,
+                                  smem_kv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, ws, ih, ik, static_cast<int>(bhkv),
+      isq, iskv, id, ild, static_cast<int>(parts), scale, sl2, ic, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  return launch_slice_sum<T>(ws, dk, dv, bhkv * skv * d, parts, stream);
 }
 
+template <typename T>
+int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
+           T* dq, T* dk, T* dv, float* lse, float* delta, float* ws,
+           long long b, long long hq, long long hkv, long long sq,
+           long long skv, long long d, long long lse_ld, float scale,
+           long long causal, long long have_lse, long long parts,
+           long long bq, long long q_parts, void* stream_ptr) {
+  if (b == 0 || hq == 0 || sq == 0 || skv == 0) return 0;
+  if ((bq != 16 && bq != 32 && bq != 64) || parts < 1 || q_parts < 1
+      || lse_ld < sq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define WIDTH(D_)                                                          \
+  if (d <= D_)                                                             \
+    return launch_d<T, D_>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, b, \
+                           hq, hkv, sq, skv, d, lse_ld, scale, causal,     \
+                           have_lse, parts, bq, q_parts, stream);
+  WIDTH(16) WIDTH(32) WIDTH(64) WIDTH(128) WIDTH(192) WIDTH(256)
+#undef WIDTH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace simt_bwd
+
 // ---------------------------------------------------------------------------
-// "wgmma": bfloat16 at head dims 64 and 128 on the tensor cores, TMA-fed
+// "wgmma": bfloat16 or float16 at head dims up to 128 on the tensor cores
 // ---------------------------------------------------------------------------
 //
 // Every kernel of this path but the two small ones is a CTA of two
@@ -574,23 +595,25 @@ int launch_d(const T* q, const T* k, const T* v, const T* o, const T* dout,
 // within what the CTA was launched with (168 a thread at 384 threads):
 // the producer drops to 24 and the consumers rise to 240, what dK and
 // dV (D/2 floats each a thread) with Sᵀ and dPᵀ (32 each) need at
-// D = 128.  Tensor
-// maps are 3-D (D, S, B·H): a tile past Sq or Skv reads zeros inside its
-// own head; with the 128-byte swizzle a box row is at most 64 bf16, so a
-// D = 128 row is two boxes.  Every product is a wgmma: both operands in
+// D = 128.  An instance of width D (64 or 128) and element type T
+// (bf16 or half) takes any d <= D with d % 8 == 0.  Tensor maps are 3-D
+// (d, S, B·H) with boxes of 64 columns: a tile past Sq or Skv reads
+// zeros inside its own head, and a row reads zeros past d, which add
+// nothing to S or dP (the columns past d of dQ, dK and dV are zeros
+// and are not stored); with the 128-byte swizzle a box row is at most
+// 64 16-bit elements, so a D = 128 row is two boxes.  Every product is a wgmma: both operands in
 // shared memory (K-major) where both come from global memory, and the
 // first operand in registers where it is P or dS (an m64nN accumulator's
 // layout is the A operand's, so P and dS never touch shared memory),
 // with the second in shared memory as the MN-major B operand (the
-// transpose bit).  P and dS are rounded to bf16 for those products;
+// transpose bit).  P and dS are rounded to T for those products;
 // everything else stays float32.
 //
 // lse and delta are float32 rows of lse_ld (Sq rounded up to kLsePad) a
 // (batch, query head); the rows past Sq are never read as values (the
 // kernels mask them).  A call runs, in order on the caller's stream:
 //
-//   (a) attention_bwd_delta — delta = rowsum(dO ∘ O), a warp a few rows,
-//       16 bytes a lane: bound by bytes, it reads O and dO once.
+//   (a) attention_bwd_delta — delta = rowsum(dO ∘ O) (above).
 //   (b) attention_bwd_dq_wgmma — one CTA per (batch·query head, 128
 //       query rows), Q and dO resident, a ring of (K, V) tiles of 64
 //       keys: S = Q·Kᵀ, dP = dO·Vᵀ,
@@ -621,7 +644,6 @@ int launch_d(const T* q, const T* k, const T* v, const T* o, const T* dout,
 
 namespace wg {
 
-using bf16 = __nv_bfloat16;
 using hopper::mbar_arrive;
 using hopper::mbar_expect_tx;
 using hopper::mbar_wait;
@@ -639,7 +661,6 @@ constexpr int kBQ = 64;        // (c): query rows a ring tile
 constexpr int kRows = 128;     // (b): query rows a CTA, 64 a warpgroup
 constexpr int kBK = 64;        // (b): keys a ring tile
 constexpr int kLsePad = 128;   // lse / delta rows padded to a multiple
-constexpr float kLog2e = 1.4426950408889634f;
 // setmaxnreg.inc waits until the CTA's own pool holds the registers it
 // asks for: a kernel built with fewer than 168 a thread would wait
 // forever, so it is not launched.
@@ -653,9 +674,20 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// float16 operands keep a product's P or dS to about 2^-22: the
+// rounding's remainder, rounded again, is a second A operand of the same
+// product (three products more a visible pair).  float16's 2e-3
+// tolerance needs it at 1,024 causal keys in groups of 7 query heads:
+// with one rounding, dV's error reaches the tolerance there.  bfloat16
+// keeps one rounding (its tolerance is 2e-2).
+template <typename T>
+constexpr bool kSplit = hopper::kIsHalf<T>;
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_rest(float lo, float hi,
+                                              uint32_t rounded) {
+  const float2 r = hopper::unpack2<T>(rounded);
+  return hopper::pack2<T>(lo - r.x, hi - r.y);
 }
 
 // A shared-memory descriptor at base + offset, computed where it is
@@ -669,28 +701,28 @@ __device__ __forceinline__ uint64_t desc_at(uint32_t base, uint32_t offset,
 }
 
 // D (64 x N) (+)= A (64 x 16, registers) . B (16 x N, smem, MN-major),
-// N = D.
-template <int D>
+// N = D; T operands.
+template <typename T, int D>
 __device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 128) {
-    hopper::wgmma_m64n128k16_rs(acc, a, db, 1);
+    hopper::wgmma_m64n128k16_rs<T>(acc, a, db, 1);
   } else {
-    hopper::wgmma_m64n64k16_rs(acc, a, db, 1);
+    hopper::wgmma_m64n64k16_rs<T>(acc, a, db, 1);
   }
 }
 
 // X (64 x 64) = A (64 rows of D, K-major) . B (64 rows of D, K-major)ᵀ
 // over D in steps of 16: 32 bytes along a box row, then the next box;
 // a_half and b_half are the byte sizes of one box of each.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void mma_ss(float (&x)[32], uint32_t a,
                                        uint32_t a_half, uint32_t b,
                                        uint32_t b_half) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t step = (kk % 4) * 32;
-    hopper::wgmma_m64n64k16_ss(x, desc_at(a, (kk / 4) * a_half + step, 16),
+    hopper::wgmma_m64n64k16_ss<T>(x, desc_at(a, (kk / 4) * a_half + step, 16),
                                desc_at(b, (kk / 4) * b_half + step, 16),
                                kk > 0);
   }
@@ -698,7 +730,7 @@ __device__ __forceinline__ void mma_ss(float (&x)[32], uint32_t a,
 
 // acc (64 x D) += A (64 x 64, registers: a[4·kk ... 4·kk + 3] the k-step
 // kk) . B (64 rows of D, MN-major; boxes `half` bytes apart).
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void mma_rs_tile(float (&acc)[D / 2],
                                             const uint32_t (&a)[16],
                                             uint32_t b, uint32_t half) {
@@ -706,44 +738,8 @@ __device__ __forceinline__ void mma_rs_tile(float (&acc)[D / 2],
   for (int kk = 0; kk < 4; ++kk) {
     const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                             a[4 * kk + 3]};
-    mma_rs<D>(acc, ak, desc_at(b, kk * 16 * 128, half));
+    mma_rs<T, D>(acc, ak, desc_at(b, kk * 16 * 128, half));
   }
-}
-
-// ---------------------------------------------------------------------------
-// (a) delta = rowsum(dO ∘ O)
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(256)
-attention_bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                    float* __restrict__ delta, long long rows, int sq,
-                    int lse_ld) {
-  constexpr int kLanes = D / 8;                 // lanes a row, 8 bf16 each
-  const int lane = threadIdx.x % 32;
-  const long long warp = (static_cast<long long>(blockIdx.x) * 256
-                          + threadIdx.x) / 32;
-  const long long row = warp * (32 / kLanes) + lane / kLanes;
-  float acc = 0.0f;
-  if (row < rows) {
-    const long long at = row * D + (lane % kLanes) * 8;
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(o + at));
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(dout + at));
-    const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
-    const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc = fmaf(__uint_as_float(wa[i] << 16), __uint_as_float(wb[i] << 16),
-                 acc);
-      acc = fmaf(__uint_as_float(wa[i] & 0xffff0000u),
-                 __uint_as_float(wb[i] & 0xffff0000u), acc);
-    }
-  }
-#pragma unroll
-  for (int x = kLanes / 2; x > 0; x >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, x);
-  if (row < rows && lane % kLanes == 0)
-    delta[(row / sq) * lse_ld + row % sq] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -764,16 +760,16 @@ struct DqLayout {
   static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + kAtom;
 };
 
-template <int D, bool kLse>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tm_q,
                        __grid_constant__ const CUtensorMap tm_do,
                        __grid_constant__ const CUtensorMap tm_k,
                        __grid_constant__ const CUtensorMap tm_v,
                        float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int hq, int hkv, int n_bh, int sq, int skv, int lse_ld,
-                       float scale, float scale_log2, int causal) {
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       int hq, int hkv, int n_bh, int sq, int skv, int d,
+                       int lse_ld, float scale, float scale_log2, int causal) {
   using L = DqLayout<D>;
   constexpr int kAcc = D / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -874,7 +870,7 @@ attention_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tm_q,
         if (!causal || k0 <= wg_last) {
           float sc[32];
           hopper::wgmma_fence();
-          mma_ss<D>(sc, s_qw, L::kQHalf, s_k + s * L::kKV, L::kKHalf);
+          mma_ss<T, D>(sc, s_qw, L::kQHalf, s_k + s * L::kKV, L::kKHalf);
           hopper::wgmma_commit();
           hopper::wgmma_wait_all();
           hopper::fence_regs(sc);
@@ -940,14 +936,14 @@ attention_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tm_q,
       if (!causal || k0 <= wg_last) {
         float sc[32], dp[32];
         hopper::wgmma_fence();
-        mma_ss<D>(sc, s_qw, L::kQHalf, s_k + s * L::kKV, L::kKHalf);
-        mma_ss<D>(dp, s_dow, L::kQHalf, s_v + s * L::kKV, L::kKHalf);
+        mma_ss<T, D>(sc, s_qw, L::kQHalf, s_k + s * L::kKV, L::kKHalf);
+        mma_ss<T, D>(dp, s_dow, L::kQHalf, s_v + s * L::kKV, L::kKHalf);
         hopper::wgmma_commit();
         hopper::wgmma_wait_all();
         hopper::fence_regs(sc);
         hopper::fence_regs(dp);
         const bool on_edge = edge(k0);
-        uint32_t ds[16];
+        uint32_t ds[16], ds_rest[16];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           float e[4];
@@ -961,14 +957,20 @@ attention_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tm_q,
                        ? 0.0f
                        : p * (dp[4 * j + x] - (hi ? delta1 : delta0));
           }
-          ds[2 * j] = pack(e[0], e[1]);
-          ds[2 * j + 1] = pack(e[2], e[3]);
+          ds[2 * j] = hopper::pack2<T>(e[0], e[1]);
+          ds[2 * j + 1] = hopper::pack2<T>(e[2], e[3]);
+          if constexpr (kSplit<T>) {
+            ds_rest[2 * j] = pack_rest<T>(e[0], e[1], ds[2 * j]);
+            ds_rest[2 * j + 1] = pack_rest<T>(e[2], e[3], ds[2 * j + 1]);
+          }
         }
         // dQ += dS·K: K as the MN-major B operand (its boxes kKHalf
         // apart).
         hopper::fence_regs(acc);
         hopper::wgmma_fence();
-        mma_rs_tile<D>(acc, ds, s_k + s * L::kKV, L::kKHalf);
+        mma_rs_tile<T, D>(acc, ds, s_k + s * L::kKV, L::kKHalf);
+        if constexpr (kSplit<T>)
+          mma_rs_tile<T, D>(acc, ds_rest, s_k + s * L::kKV, L::kKHalf);
         hopper::wgmma_commit();
         hopper::wgmma_wait_all();
         hopper::fence_regs(acc);
@@ -976,18 +978,20 @@ attention_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tm_q,
       mbar_arrive(empty + 8 * s);
     }
 
-    bf16* out = dq + static_cast<long long>(bh) * sq * D;
+    // Rows of d; the columns past d (zeros) are not stored.
+    T* out = dq + static_cast<long long>(bh) * sq * d;
 #pragma unroll
     for (int j = 0; j < kAcc / 4; ++j) {
       const int c = 8 * j + col;
+      if (c >= d) continue;
       if (row0 < sq)
-        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row0) * D
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row0) * d
                                      + c) =
-            pack(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+            hopper::pack2<T>(acc[4 * j] * scale, acc[4 * j + 1] * scale);
       if (row0 + 8 < sq)
         *reinterpret_cast<uint32_t*>(
-            out + static_cast<long long>(row0 + 8) * D + c) =
-            pack(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+            out + static_cast<long long>(row0 + 8) * d + c) =
+            hopper::pack2<T>(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
     }
   }
 }
@@ -1014,12 +1018,14 @@ struct DkdvLayout {
 };
 
 // Pᵀ of one ring tile (this warpgroup's 64 keys x the tile's 64 query
-// rows) in bf16 registers, in the A operand's layout: Sᵀ = K·Qᵀ, then
+// rows) in T registers, in the A operand's layout: Sᵀ = K·Qᵀ, then
 // exp2(Sᵀ·scale·log2 e − lse).  Where the tile crosses Sq or the causal
 // diagonal (on_edge), masked elements are 0 and their bits set in off
 // (keys past Skv only feed rows of dK and dV that are not written).
-template <int D>
-__device__ __forceinline__ void dkdv_probs(uint32_t (&p)[16], uint32_t& off,
+template <typename T, int D>
+__device__ __forceinline__ void dkdv_probs(uint32_t (&p)[16],
+                                           uint32_t (&p_rest)[16],
+                                           uint32_t& off,
                                            uint32_t s_kw, uint32_t s_qt,
                                            const float* lt, int q0, int key0,
                                            int col, int sq, int offset,
@@ -1028,7 +1034,7 @@ __device__ __forceinline__ void dkdv_probs(uint32_t (&p)[16], uint32_t& off,
   using L = DkdvLayout<D>;
   float st[32];
   hopper::wgmma_fence();
-  mma_ss<D>(st, s_kw, L::kKHalf, s_qt, L::kQHalf);
+  mma_ss<T, D>(st, s_kw, L::kKHalf, s_qt, L::kQHalf);
   hopper::wgmma_commit();
   hopper::wgmma_wait_all();
   hopper::fence_regs(st);
@@ -1049,15 +1055,23 @@ __device__ __forceinline__ void dkdv_probs(uint32_t (&p)[16], uint32_t& off,
                  : ex2(fmaf(st[4 * j + x], scale_log2,
                             -((x & 1) ? l2.y : l2.x)));
     }
-    p[2 * j] = pack(e[0], e[1]);
-    p[2 * j + 1] = pack(e[2], e[3]);
+    p[2 * j] = hopper::pack2<T>(e[0], e[1]);
+    p[2 * j + 1] = hopper::pack2<T>(e[2], e[3]);
+    if constexpr (kSplit<T>) {
+      p_rest[2 * j] = pack_rest<T>(e[0], e[1], p[2 * j]);
+      p_rest[2 * j + 1] = pack_rest<T>(e[2], e[3], p[2 * j + 1]);
+    }
   }
 }
 
-// dSᵀ = Pᵀ ∘ (dPᵀ − delta) in bf16 registers, from the bf16 Pᵀ.
+// dSᵀ = Pᵀ ∘ (dPᵀ − delta) in T registers, from the rounded Pᵀ (with
+// kSplit, from Pᵀ and its remainder, and dSᵀ's own remainder beside it).
+template <typename T>
 __device__ __forceinline__ void dkdv_dscores(uint32_t (&ds)[16],
+                                             uint32_t (&ds_rest)[16],
                                              const float (&dpt)[32],
                                              const uint32_t (&p)[16],
+                                             const uint32_t (&p_rest)[16],
                                              uint32_t off, const float* dt,
                                              int col) {
 #pragma unroll
@@ -1066,40 +1080,51 @@ __device__ __forceinline__ void dkdv_dscores(uint32_t (&ds)[16],
     float f[4];
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      const uint32_t w = p[2 * j + x / 2];
-      const float pv = __uint_as_float((x & 1) ? w & 0xffff0000u : w << 16);
+      float2 w = hopper::unpack2<T>(p[2 * j + x / 2]);
+      if constexpr (kSplit<T>) {
+        const float2 r = hopper::unpack2<T>(p_rest[2 * j + x / 2]);
+        w.x += r.x;
+        w.y += r.y;
+      }
+      const float pv = (x & 1) ? w.y : w.x;
       f[x] = off >> (4 * j + x) & 1
                  ? 0.0f
                  : pv * (dpt[4 * j + x] - ((x & 1) ? d2.y : d2.x));
     }
-    ds[2 * j] = pack(f[0], f[1]);
-    ds[2 * j + 1] = pack(f[2], f[3]);
+    ds[2 * j] = hopper::pack2<T>(f[0], f[1]);
+    ds[2 * j + 1] = hopper::pack2<T>(f[2], f[3]);
+    if constexpr (kSplit<T>) {
+      ds_rest[2 * j] = pack_rest<T>(f[0], f[1], ds[2 * j]);
+      ds_rest[2 * j + 1] = pack_rest<T>(f[2], f[3], ds[2 * j + 1]);
+    }
   }
 }
 
 // A warpgroup's dK or dV rows (keys key0 and key0 + 8 a lane) times
-// `mul`: in bf16 to `out` with one slice, else as float32 partials to
-// the workspace, slice-major (part 0 dK's, part 1 dV's), summed by (d).
-template <int D>
+// `mul`: in T to `out` with one slice, else as float32 partials to the
+// workspace, slice-major (part 0 dK's, part 1 dV's), summed by (d).
+// Rows of d; the columns past d are not stored.
+template <typename T, int D>
 __device__ __forceinline__ void dkdv_store(const float (&acc)[D / 2],
-                                           bf16* out, float* ws, int part,
+                                           T* out, float* ws, int part,
                                            int slice, int slices, int n_bkv,
-                                           int bkv, int skv, int key0,
+                                           int bkv, int skv, int d, int key0,
                                            int col, float mul) {
-  const long long n = static_cast<long long>(n_bkv) * skv * D;
-  const long long head = static_cast<long long>(bkv) * skv * D;
+  const long long n = static_cast<long long>(n_bkv) * skv * d;
+  const long long head = static_cast<long long>(bkv) * skv * d;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
+    if (8 * j + col >= d) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int key = key0 + 8 * h;
       if (key >= skv) continue;
-      const long long at = head + static_cast<long long>(key) * D + 8 * j
+      const long long at = head + static_cast<long long>(key) * d + 8 * j
                            + col;
       const float x0 = acc[4 * j + 2 * h] * mul;
       const float x1 = acc[4 * j + 2 * h + 1] * mul;
       if (slices == 1)
-        *reinterpret_cast<uint32_t*>(out + at) = pack(x0, x1);
+        *reinterpret_cast<uint32_t*>(out + at) = hopper::pack2<T>(x0, x1);
       else
         *reinterpret_cast<float2*>(ws + (2 * slice + part) * n + at) =
             make_float2(x0, x1);
@@ -1107,7 +1132,7 @@ __device__ __forceinline__ void dkdv_store(const float (&acc)[D / 2],
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_do,
@@ -1115,10 +1140,10 @@ attention_bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_v,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         T* __restrict__ dk, T* __restrict__ dv,
                          float* __restrict__ ws, int hq, int hkv, int n_bkv,
-                         int sq, int skv, int lse_ld, int slices, float scale,
-                         float scale_log2, int causal) {
+                         int sq, int skv, int d, int lse_ld, int slices,
+                         float scale, float scale_log2, int causal) {
   using L = DkdvLayout<D>;
   constexpr int kAcc = D / 2;
   // At D = 128, dK and dV (64 floats each a thread) and a tile's Sᵀ and
@@ -1245,34 +1270,39 @@ attention_bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tm_q,
           // Pᵀ first, before dPᵀ takes registers; then dPᵀ = V·dOᵀ and
           // dV += Pᵀ·dO (dO as the MN-major B operand), dSᵀ, and
           // dK += dSᵀ·Q (Q as the MN-major B operand).
-          uint32_t p[16], ds[16];
+          uint32_t p[16], p_rest[16], ds[16], ds_rest[16];
           uint32_t off;
-          dkdv_probs<D>(p, off, s_kw, s_q + s * L::kQ, lse_s + s * kBQ, q0,
-                        key0, col, sq, offset, causal, on_edge(q0),
-                        scale_log2);
+          dkdv_probs<T, D>(p, p_rest, off, s_kw, s_q + s * L::kQ,
+                           lse_s + s * kBQ, q0, key0, col, sq, offset, causal,
+                           on_edge(q0), scale_log2);
           float dpt[32];
           hopper::fence_regs(acc_v);
           hopper::wgmma_fence();
-          mma_ss<D>(dpt, s_vw, L::kKHalf, s_do + s * L::kQ, L::kQHalf);
-          mma_rs_tile<D>(acc_v, p, s_do + s * L::kQ, L::kQHalf);
+          mma_ss<T, D>(dpt, s_vw, L::kKHalf, s_do + s * L::kQ, L::kQHalf);
+          mma_rs_tile<T, D>(acc_v, p, s_do + s * L::kQ, L::kQHalf);
+          if constexpr (kSplit<T>)
+            mma_rs_tile<T, D>(acc_v, p_rest, s_do + s * L::kQ, L::kQHalf);
           hopper::wgmma_commit();
           hopper::wgmma_wait_all();
           hopper::fence_regs(dpt);
           hopper::fence_regs(acc_v);
-          dkdv_dscores(ds, dpt, p, off, delta_s + s * kBQ, col);
+          dkdv_dscores<T>(ds, ds_rest, dpt, p, p_rest, off,
+                          delta_s + s * kBQ, col);
           hopper::fence_regs(acc_k);
           hopper::wgmma_fence();
-          mma_rs_tile<D>(acc_k, ds, s_q + s * L::kQ, L::kQHalf);
+          mma_rs_tile<T, D>(acc_k, ds, s_q + s * L::kQ, L::kQHalf);
+          if constexpr (kSplit<T>)
+            mma_rs_tile<T, D>(acc_k, ds_rest, s_q + s * L::kQ, L::kQHalf);
           hopper::wgmma_commit();
           hopper::wgmma_wait_all();
           hopper::fence_regs(acc_k);
         }
         mbar_arrive(empty + 8 * s);
       }
-      dkdv_store<D>(acc_k, dk, ws, 0, slice, slices, n_bkv, bkv, skv, key0,
-                    col, scale);
-      dkdv_store<D>(acc_v, dv, ws, 1, slice, slices, n_bkv, bkv, skv, key0,
-                    col, 1.0f);
+      dkdv_store<T, D>(acc_k, dk, ws, 0, slice, slices, n_bkv, bkv, skv, d,
+                       key0, col, scale);
+      dkdv_store<T, D>(acc_v, dv, ws, 1, slice, slices, n_bkv, bkv, skv, d,
+                       key0, col, 1.0f);
     } else {
       {  // Pass 1: dV += Pᵀ·dO.
         float acc_v[kAcc];
@@ -1282,22 +1312,24 @@ attention_bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tm_q,
           const int s = stage(i), q0 = first_row(i);
           mbar_wait(full + 8 * s, (i / kStages) & 1);
           if (visible(q0)) {
-            uint32_t p[16];
+            uint32_t p[16], p_rest[16];
             uint32_t off;
-            dkdv_probs<D>(p, off, s_kw, s_q + s * L::kQ, lse_s + s * kBQ,
-                          q0, key0, col, sq, offset, causal, on_edge(q0),
-                          scale_log2);
+            dkdv_probs<T, D>(p, p_rest, off, s_kw, s_q + s * L::kQ,
+                             lse_s + s * kBQ, q0, key0, col, sq, offset,
+                             causal, on_edge(q0), scale_log2);
             hopper::fence_regs(acc_v);
             hopper::wgmma_fence();
-            mma_rs_tile<D>(acc_v, p, s_do + s * L::kQ, L::kQHalf);
+            mma_rs_tile<T, D>(acc_v, p, s_do + s * L::kQ, L::kQHalf);
+            if constexpr (kSplit<T>)
+              mma_rs_tile<T, D>(acc_v, p_rest, s_do + s * L::kQ, L::kQHalf);
             hopper::wgmma_commit();
             hopper::wgmma_wait_all();
             hopper::fence_regs(acc_v);
           }
           mbar_arrive(empty + 8 * s);
         }
-        dkdv_store<D>(acc_v, dv, ws, 1, slice, slices, n_bkv, bkv, skv,
-                      key0, col, 1.0f);
+        dkdv_store<T, D>(acc_v, dv, ws, 1, slice, slices, n_bkv, bkv, skv,
+                         d, key0, col, 1.0f);
       }
       {  // Pass 2: dSᵀ from Sᵀ again and dPᵀ, dK += dSᵀ·Q.
         float acc_k[kAcc];
@@ -1307,56 +1339,34 @@ attention_bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tm_q,
           const int s = stage(i), q0 = first_row(i);
           mbar_wait(full + 8 * s, (i / kStages) & 1);
           if (visible(q0)) {
-            uint32_t p[16], ds[16];
+            uint32_t p[16], p_rest[16], ds[16], ds_rest[16];
             uint32_t off;
-            dkdv_probs<D>(p, off, s_kw, s_q + s * L::kQ, lse_s + s * kBQ,
-                          q0, key0, col, sq, offset, causal, on_edge(q0),
-                          scale_log2);
+            dkdv_probs<T, D>(p, p_rest, off, s_kw, s_q + s * L::kQ,
+                             lse_s + s * kBQ, q0, key0, col, sq, offset,
+                             causal, on_edge(q0), scale_log2);
             float dpt[32];
             hopper::wgmma_fence();
-            mma_ss<D>(dpt, s_vw, L::kKHalf, s_do + s * L::kQ, L::kQHalf);
+            mma_ss<T, D>(dpt, s_vw, L::kKHalf, s_do + s * L::kQ, L::kQHalf);
             hopper::wgmma_commit();
             hopper::wgmma_wait_all();
             hopper::fence_regs(dpt);
-            dkdv_dscores(ds, dpt, p, off, delta_s + s * kBQ, col);
+            dkdv_dscores<T>(ds, ds_rest, dpt, p, p_rest, off,
+                            delta_s + s * kBQ, col);
             hopper::fence_regs(acc_k);
             hopper::wgmma_fence();
-            mma_rs_tile<D>(acc_k, ds, s_q + s * L::kQ, L::kQHalf);
+            mma_rs_tile<T, D>(acc_k, ds, s_q + s * L::kQ, L::kQHalf);
+            if constexpr (kSplit<T>)
+              mma_rs_tile<T, D>(acc_k, ds_rest, s_q + s * L::kQ, L::kQHalf);
             hopper::wgmma_commit();
             hopper::wgmma_wait_all();
             hopper::fence_regs(acc_k);
           }
           mbar_arrive(empty + 8 * s);
         }
-        dkdv_store<D>(acc_k, dk, ws, 0, slice, slices, n_bkv, bkv, skv,
-                      key0, col, scale);
+        dkdv_store<T, D>(acc_k, dk, ws, 0, slice, slices, n_bkv, bkv, skv,
+                         d, key0, col, scale);
       }
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// (d) the slices' partial dK and dV, summed in slice order
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(256)
-attention_bwd_slice_sum(const float* __restrict__ ws, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, long long n, int slices) {
-  const long long n4 = n / 4;                    // D is a multiple of 4
-  const float4* w = reinterpret_cast<const float4*>(ws);
-  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-       i < 2 * n4; i += static_cast<long long>(gridDim.x) * 256) {
-    float4 acc = w[i];
-    for (int s = 1; s < slices; ++s) {
-      const float4 x = w[2 * s * n4 + i];
-      acc.x += x.x;
-      acc.y += x.y;
-      acc.z += x.z;
-      acc.w += x.w;
-    }
-    bf16* out = i < n4 ? dk + 4 * i : dv + 4 * (i - n4);
-    *reinterpret_cast<uint2*>(out) = make_uint2(pack(acc.x, acc.y),
-                                                pack(acc.z, acc.w));
   }
 }
 
@@ -1389,42 +1399,38 @@ int prepare(uint32_t smem) {
   return rc;
 }
 
-template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* lse,
-           float* delta, float* ws, long long b, long long hq, long long hkv,
-           long long sq, long long skv, long long lse_ld, float scale,
+template <typename T, int D>
+int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
+           T* dq, T* dk, T* dv, float* lse, float* delta, float* ws,
+           long long b, long long hq, long long hkv, long long sq,
+           long long skv, long long d, long long lse_ld, float scale,
            long long causal, long long have_lse, long long slices,
            cudaStream_t stream) {
   const long long bhq = b * hq, bhkv = b * hkv;
   const int ic = static_cast<int>(causal), ild = static_cast<int>(lse_ld);
+  const int id = static_cast<int>(d);
   const float sl2 = scale * kLog2e;
   // delta first: the card runs it while the host encodes the maps.
-  const long long rows = bhq * sq;
-  constexpr int kRowsPerBlock = 8 * (32 / (D / 8));
-  attention_bwd_delta<D>
-      <<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock),
-         256, 0, stream>>>(o, dout, delta, rows, static_cast<int>(sq), ild);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int rc = launch_delta<T>(o, dout, delta, bhq * sq, sq, d, lse_ld, stream);
+  if (rc != 0) return rc;
 
   // One map a tensor: boxes of kBQ query rows (the dK/dV tile; the
   // dQ kernel loads its 128 rows as several) and kBK keys (the dQ tile;
-  // the dK/dV kernel loads its 128 keys as two).
+  // the dK/dV kernel loads its 128 keys as two); reads past d are zeros.
   CUtensorMap qm, dom, km, vm;
-  int rc = hopper::bf16_map(&qm, q, D, sq, bhq, kBQ);
-  if (rc == 0) rc = hopper::bf16_map(&dom, dout, D, sq, bhq, kBQ);
-  if (rc == 0) rc = hopper::bf16_map(&km, k, D, skv, bhkv, kBK);
-  if (rc == 0) rc = hopper::bf16_map(&vm, v, D, skv, bhkv, kBK);
+  rc = hopper::tile_map<T>(&qm, q, d, sq, bhq, kBQ);
+  if (rc == 0) rc = hopper::tile_map<T>(&dom, dout, d, sq, bhq, kBQ);
+  if (rc == 0) rc = hopper::tile_map<T>(&km, k, d, skv, bhkv, kBK);
+  if (rc == 0) rc = hopper::tile_map<T>(&vm, v, d, skv, bhkv, kBK);
   if (rc != 0) return rc;
-  auto kdq = have_lse ? attention_bwd_dq_wgmma<D, false>
-                      : attention_bwd_dq_wgmma<D, true>;
-  rc = have_lse ? prepare<attention_bwd_dq_wgmma<D, false>>(
+  auto kdq = have_lse ? attention_bwd_dq_wgmma<T, D, false>
+                      : attention_bwd_dq_wgmma<T, D, true>;
+  rc = have_lse ? prepare<attention_bwd_dq_wgmma<T, D, false>>(
                       DqLayout<D>::kBytes)
-                : prepare<attention_bwd_dq_wgmma<D, true>>(
+                : prepare<attention_bwd_dq_wgmma<T, D, true>>(
                       DqLayout<D>::kBytes);
   if (rc == 0)
-    rc = prepare<attention_bwd_dkdv_wgmma<D>>(DkdvLayout<D>::kBytes);
+    rc = prepare<attention_bwd_dkdv_wgmma<T, D>>(DkdvLayout<D>::kBytes);
   if (rc != 0) return rc;
 
   const long long n_qt = (sq + kRows - 1) / kRows;
@@ -1432,99 +1438,94 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
         stream>>>(qm, dom, km, vm, lse, delta, dq,
                   static_cast<int>(hq), static_cast<int>(hkv),
                   static_cast<int>(bhq), static_cast<int>(sq),
-                  static_cast<int>(skv), ild, scale, sl2, ic);
-  err = cudaGetLastError();
+                  static_cast<int>(skv), id, ild, scale, sl2, ic);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long n_kt = (skv + kKeys - 1) / kKeys;
-  attention_bwd_dkdv_wgmma<D>
+  attention_bwd_dkdv_wgmma<T, D>
       <<<static_cast<unsigned>(n_kt * slices * bhkv), kThreads,
          DkdvLayout<D>::kBytes, stream>>>(
       qm, dom, km, vm, lse, delta, dk, dv, ws, static_cast<int>(hq),
       static_cast<int>(hkv), static_cast<int>(bhkv), static_cast<int>(sq),
-      static_cast<int>(skv), ild, static_cast<int>(slices), scale, sl2, ic);
+      static_cast<int>(skv), id, ild, static_cast<int>(slices), scale, sl2,
+      ic);
   err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return static_cast<int>(err);
+  return launch_slice_sum<T>(ws, dk, dv, bhkv * skv * d, slices, stream);
+}
 
-  const long long n = bhkv * skv * D;
-  const long long blocks = std::min((2 * n / 4 + 255) / 256, 132LL * 16);
-  attention_bwd_slice_sum<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      ws, dk, dv, n, static_cast<int>(slices));
-  return static_cast<int>(cudaGetLastError());
+// The instance of width 64 (d <= 64) or 128; d % 8 == 0.
+template <typename T>
+int launch_width(const T* q, const T* k, const T* v, const T* o,
+                 const T* dout, T* dq, T* dk, T* dv, float* lse,
+                 float* delta, float* ws, long long b, long long hq,
+                 long long hkv, long long sq, long long skv, long long d,
+                 long long lse_ld, float scale, long long causal,
+                 long long have_lse, long long slices, void* stream) {
+  if (b == 0 || hq == 0 || sq == 0 || skv == 0) return 0;
+  if (slices < 1 || (hq / hkv) % slices != 0 || lse_ld < sq
+      || lse_ld % kLsePad != 0 || d < 8 || d > 128 || d % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 64)
+    return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, b, hq,
+                         hkv, sq, skv, d, lse_ld, scale, causal, have_lse,
+                         slices, st);
+  return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, b, hq,
+                        hkv, sq, skv, d, lse_ld, scale, causal, have_lse,
+                        slices, st);
 }
 
 }  // namespace wg
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
-           T* dq, T* dk, T* dv, float* lse, float* delta, long long b,
-           long long hq, long long hkv, long long sq, long long skv,
-           long long d, float scale, long long causal, void* stream_ptr) {
-  if (b == 0 || hq == 0 || sq == 0 || skv == 0) return 0;
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define WIDTH(D_)                                                          \
-  if (d <= D_)                                                             \
-    return d == D_ ? launch_d<T, D_, false>(q, k, v, o, dout, dq, dk, dv,  \
-                                            lse, delta, b, hq, hkv, sq,    \
-                                            skv, d, scale, causal, stream) \
-                   : launch_d<T, D_, true>(q, k, v, o, dout, dq, dk, dv,   \
-                                           lse, delta, b, hq, hkv, sq,     \
-                                           skv, d, scale, causal, stream);
-  WIDTH(32) WIDTH(64) WIDTH(128) WIDTH(256)
-#undef WIDTH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
-// lse and delta: float32 workspaces of B·Hq·Sq each.
-extern "C" int flash_attention_bwd_f32(
-    const float* q, const float* k, const float* v, const float* o,
-    const float* dout, float* dq, float* dk, float* dv, float* lse,
-    float* delta, long long b, long long hq, long long hkv, long long sq,
-    long long skv, long long d, float scale, long long causal,
-    void* stream) {
-  return launch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, b, hq, hkv,
-                       sq, skv, d, scale, causal, stream);
-}
+// The C entry points.  lse and delta: float32 rows of lse_ld (Sq rounded
+// up to 128) a (batch, query head); lse holds the forward's log-sum-exp
+// (base 2 of the scaled scores) when have_lse, else the kernels write it.
+// ws: slices·2·B·Hkv·Skv·d float32 when slices > 1, else unused.
+//
+// "simt": float32, bfloat16 or float16, any d <= 256; slices are the
+// dK/dV kernel's parts, bq the dQ kernel's query tile (16, 32 or 64) and
+// q_parts its parts; ws then also holds q_parts·B·Hq·Sq·d floats after
+// the dK/dV partials when q_parts > 1.
+#define SIMT_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(const T* q, const T* k, const T* v, const T* o,       \
+                      const T* dout, T* dq, T* dk, T* dv, float* lse,       \
+                      float* delta, float* ws, long long b, long long hq,   \
+                      long long hkv, long long sq, long long skv,           \
+                      long long d, long long lse_ld, float scale,           \
+                      long long causal, long long have_lse,                 \
+                      long long slices, long long bq, long long q_parts,    \
+                      void* stream) {                                       \
+    return simt_bwd::launch<T>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, \
+                               b, hq, hkv, sq, skv, d, lse_ld, scale,       \
+                               causal, have_lse, slices, bq, q_parts,       \
+                               stream);                                     \
+  }
+SIMT_ENTRY(flash_attention_bwd_simt_f32, float)
+SIMT_ENTRY(flash_attention_bwd_simt_bf16, __nv_bfloat16)
+SIMT_ENTRY(flash_attention_bwd_simt_f16, __half)
+#undef SIMT_ENTRY
 
-extern "C" int flash_attention_bwd_bf16(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const __nv_bfloat16* o, const __nv_bfloat16* dout, __nv_bfloat16* dq,
-    __nv_bfloat16* dk, __nv_bfloat16* dv, float* lse, float* delta,
-    long long b, long long hq, long long hkv, long long sq, long long skv,
-    long long d, float scale, long long causal, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, delta, b,
-                               hq, hkv, sq, skv, d, scale, causal, stream);
-}
-
-// "wgmma": bfloat16 at head dims 64 and 128.  lse and delta: float32
-// rows of lse_ld (Sq rounded up to 128) a (batch, query head); lse holds
-// the forward's log-sum-exp (base 2 of the scaled scores) when have_lse,
-// else the dQ kernel writes it.  ws: slices·2·B·Hkv·Skv·D float32 when
-// slices > 1 (a divisor of Hq/Hkv), else unused.
-extern "C" int flash_attention_bwd_wgmma_bf16(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const __nv_bfloat16* o, const __nv_bfloat16* dout, __nv_bfloat16* dq,
-    __nv_bfloat16* dk, __nv_bfloat16* dv, float* lse, float* delta,
-    float* ws, long long b, long long hq, long long hkv, long long sq,
-    long long skv, long long d, long long lse_ld, float scale,
-    long long causal, long long have_lse, long long slices, void* stream) {
-  if (b == 0 || hq == 0 || sq == 0 || skv == 0) return 0;
-  if (slices < 1 || (hq / hkv) % slices != 0 || lse_ld < sq
-      || lse_ld % wg::kLsePad != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return wg::launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, b,
-                          hq, hkv, sq, skv, lse_ld, scale, causal, have_lse,
-                          slices, st);
-  if (d == 128)
-    return wg::launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, b,
-                           hq, hkv, sq, skv, lse_ld, scale, causal, have_lse,
-                           slices, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+// "wgmma": bfloat16 or float16 at d <= 128, d % 8 == 0; slices a divisor
+// of Hq/Hkv.
+#define WGMMA_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const T* q, const T* k, const T* v, const T* o,       \
+                      const T* dout, T* dq, T* dk, T* dv, float* lse,       \
+                      float* delta, float* ws, long long b, long long hq,   \
+                      long long hkv, long long sq, long long skv,           \
+                      long long d, long long lse_ld, float scale,           \
+                      long long causal, long long have_lse,                 \
+                      long long slices, void* stream) {                     \
+    return wg::launch_width<T>(q, k, v, o, dout, dq, dk, dv, lse, delta, ws, \
+                               b, hq, hkv, sq, skv, d, lse_ld, scale,       \
+                               causal, have_lse, slices, stream);           \
+  }
+WGMMA_ENTRY(flash_attention_bwd_wgmma_bf16, __nv_bfloat16)
+WGMMA_ENTRY(flash_attention_bwd_wgmma_f16, __half)
+#undef WGMMA_ENTRY
 
 extern "C" const char* kernel_error_string(int code) {
   if (code == wg::kRegisterBudget)

@@ -1,16 +1,20 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory
-// mbarriers, TMA tensor and bulk loads, register reallocation between
-// warpgroups (setmaxnreg), and warpgroup matrix products (wgmma) with
-// their shared-memory descriptors; on the host, the bf16 tensor maps
-// the TMA loads read.  Included by the kernels that use them;
+// mbarriers, TMA tensor and bulk loads, cp.async copies, register
+// reallocation between warpgroups (setmaxnreg), and warpgroup matrix
+// products (wgmma, bfloat16 or float16 operands) with their
+// shared-memory descriptors; on the host, the 16-bit tensor maps the TMA
+// loads read.  Included by the kernels that use them;
 // `_build.library_path` hashes every header here, so an edit rebuilds
 // them.
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace hopper {
@@ -95,6 +99,34 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// cp.async: each thread copies kBytes (4, 8 or 16; both addresses
+// aligned to it) into shared memory, of which the first `src_bytes` come
+// from `src` and the rest are zeros (src_bytes = 0: all zeros, nothing
+// read).  A thread's copies form a group at commit; wait<N> returns when
+// at most N of its latest groups are still in flight.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         uint32_t src_bytes) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // setmaxnreg: a warpgroup (or a lone warp) gives back or takes registers
 // a thread.  Executed by every thread of it; the roles must never
@@ -147,90 +179,129 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The wgmma operand type of element type T: "bf16" or "f16".
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+#define HOPPER_ACC32                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+#define HOPPER_ACC64                                                        \
+  HOPPER_ACC32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),    \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),    \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),    \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),    \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),    \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define HOPPER_REGS32                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define HOPPER_REGS64                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
 // D (64 x 64, f32) (+)= A (64 x 16, smem, K-major) . B (64 x 16, smem,
-// K-major); bf16 operands.
+// K-major); T (bf16 or half) operands.
+#define HOPPER_SS_64(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               HOPPER_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"              \
+               : HOPPER_ACC32                                               \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
                                                   uint64_t desc_a,
                                                   uint64_t desc_b,
                                                   int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsHalf<T>) {
+    HOPPER_SS_64("f16");
+  } else {
+    HOPPER_SS_64("bf16");
+  }
 }
 
 // D (64 x 64, f32) (+)= A (64 x 16, registers) . B (16 x 64, smem,
-// MN-major: the transpose bit set); bf16 operands.
+// MN-major: the transpose bit set); T operands.
+#define HOPPER_RS_64(TY)                                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
+               HOPPER_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : HOPPER_ACC32                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),   \
+                 "r"(scale_d))
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                   const uint32_t (&a)[4],
                                                   uint64_t desc_b,
                                                   int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+  if constexpr (kIsHalf<T>) {
+    HOPPER_RS_64("f16");
+  } else {
+    HOPPER_RS_64("bf16");
+  }
 }
 
 // D (64 x 128, f32) (+)= A (64 x 16, registers) . B (16 x 128, smem,
-// MN-major: the transpose bit set); bf16 operands.
+// MN-major: the transpose bit set); T operands.
+#define HOPPER_RS_128(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+               HOPPER_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : HOPPER_ACC64                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),   \
+                 "r"(scale_d))
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t desc_b,
-                                                  int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
-      "%67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  if constexpr (kIsHalf<T>) {
+    HOPPER_RS_128("f16");
+  } else {
+    HOPPER_RS_128("bf16");
+  }
+}
+
+// Two floats as one register of two T (bf16 or half), lo in the low
+// half, rounded to nearest; and back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (kIsHalf<T>) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+  }
 }
 
 // ---------------------------------------------------------------------------
-// Host: bf16 tensor maps for the TMA loads
+// Host: 16-bit tensor maps for the TMA loads
 // ---------------------------------------------------------------------------
 
 constexpr int kNoEncoder = -1;     // cuTensorMapEncodeTiled not found
 constexpr int kBadTensorMap = -2;  // cuTensorMapEncodeTiled refused
-constexpr int kBoxCols = 64;       // bf16 columns of one 128-byte box row
+constexpr int kBoxCols = 64;       // 16-bit columns of one 128-byte box row
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so
 // a library needs no -lcuda.
@@ -259,9 +330,11 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 (B·H, S, D) tensor as a 3-D map (D, S, B·H) with boxes of
-// (64, rows, 1) in the 128-byte swizzle; reads past S fill zeros.
-inline int bf16_map(CUtensorMap* map, const void* ptr, long long d,
+// A (B·H, S, d) tensor of T (bf16 or half) as a 3-D map (d, S, B·H)
+// with boxes of (64, rows, 1) in the 128-byte swizzle; reads past d or S
+// fill zeros.  Rows of d elements: d·2 must be a multiple of 16.
+template <typename T>
+inline int tile_map(CUtensorMap* map, const void* ptr, long long d,
                     long long s, long long bh, int rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kNoEncoder;
@@ -273,8 +346,10 @@ inline int bf16_map(CUtensorMap* map, const void* ptr, long long d,
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(kBoxCols),
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(ptr), dims, strides, box, unit,
+  const CUresult r = fn(map,
+                        kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        3, const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

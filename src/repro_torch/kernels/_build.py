@@ -27,11 +27,11 @@ import torch
 _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 _HIST = (_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P)
 _TOTALS = (_P, _P, _P, _LL, _LL, _LL, _LL, _P)
-_ATTN = (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL, _LL, _LL, _P)
+_ATTN_SIMT = (_P,) * 5 + (_LL,) * 7 + (_F, _LL, _LL, _LL, _P, _P, _P)
 _ATTN_WGMMA = (_P,) * 5 + (_LL,) * 7 + (_F, _LL, _P)
 _ATTN_SPLIT = (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _F, _LL,
                _LL, _LL, _P)
-_ATTN_BWD = (_P,) * 10 + (_LL,) * 6 + (_F, _LL, _P)
+_ATTN_BWD_SIMT = (_P,) * 11 + (_LL,) * 7 + (_F, _LL, _LL, _LL, _LL, _LL, _P)
 _ATTN_BWD_WGMMA = (_P,) * 11 + (_LL,) * 7 + (_F, _LL, _LL, _LL, _P)
 #: One library per ``csrc/<name>.cu``, and its C entry points:
 #: (pointers..., sizes..., stream) -> ``cudaGetLastError()`` as int.
@@ -45,13 +45,19 @@ SIGNATURES = {
                        "hash_histogram_i64": _HIST,
                        "bucket_counts_i32": _TOTALS,
                        "bucket_counts_i64": _TOTALS},
-    "flash_attention": {"flash_attention_f32": _ATTN,
+    "flash_attention": {"flash_attention_simt_f32": _ATTN_SIMT,
+                        "flash_attention_simt_bf16": _ATTN_SIMT,
+                        "flash_attention_simt_f16": _ATTN_SIMT,
                         "flash_attention_wgmma_bf16": _ATTN_WGMMA,
+                        "flash_attention_wgmma_f16": _ATTN_WGMMA,
                         "flash_attention_split_f32": _ATTN_SPLIT,
                         "flash_attention_split_bf16": _ATTN_SPLIT},
-    "flash_attention_bwd": {"flash_attention_bwd_f32": _ATTN_BWD,
-                            "flash_attention_bwd_bf16": _ATTN_BWD,
+    "flash_attention_bwd": {"flash_attention_bwd_simt_f32": _ATTN_BWD_SIMT,
+                            "flash_attention_bwd_simt_bf16": _ATTN_BWD_SIMT,
+                            "flash_attention_bwd_simt_f16": _ATTN_BWD_SIMT,
                             "flash_attention_bwd_wgmma_bf16":
+                                _ATTN_BWD_WGMMA,
+                            "flash_attention_bwd_wgmma_f16":
                                 _ATTN_BWD_WGMMA},
 }
 

@@ -35,24 +35,26 @@ __all__ = ["KERNEL_SYMBOLS", "LAUNCHES", "reset_launches", "traced_launches"]
 #: The device functions of each kernel that its wrapper launches once a
 #: call (one of them, by path), as they appear in a device trace.  The
 #: other functions of the same call (``segment_sum_fixup``,
-#: ``attention_combine``, the backward's ``attention_bwd_preprocess``,
-#: ``attention_bwd_dq``, ``attention_bwd_delta``, ``attention_bwd_dq_wgmma``
-#: and ``attention_bwd_slice_sum``) are left out, so a trace counts in
-#: the unit of :data:`LAUNCHES`: the backward by its dK/dV function,
-#: ``attention_bwd_dkdv`` ("simt") or ``attention_bwd_dkdv_wgmma``
-#: ("wgmma"), which ``\b`` keeps apart.  Past 65,535 leading rows the
-#: per-block histogram and the "simt" and "split" attention kernels
-#: launch once per 65,535 rows (the grid's y limit), so there a trace
-#: counts more than the wrappers; ``probe_counts``, ``segment_sum`` and
-#: ``bucket_counts`` stay one launch a call.
+#: ``attention_combine``, the backward's ``attention_bwd_delta``,
+#: ``attention_bwd_lse``, ``attention_bwd_dq_simt``,
+#: ``attention_bwd_dq_wgmma`` and ``attention_bwd_slice_sum``) are left
+#: out, so a trace counts in the unit of :data:`LAUNCHES`: the backward
+#: by its dK/dV function, ``attention_bwd_dkdv_simt`` ("simt") or
+#: ``attention_bwd_dkdv_wgmma`` ("wgmma").  Past 65,535 leading rows the
+#: per-block histogram and the "split" attention kernel launch once per
+#: 65,535 rows (the grid's y limit), so there a trace counts more than
+#: the wrappers; ``probe_counts``, ``segment_sum``, ``bucket_counts``
+#: and the "simt" and "wgmma" attention kernels (1-D grids) stay one
+#: launch a call.
 KERNEL_SYMBOLS = {
     "segment_sum": ("segment_sum_tiles",),
     "probe_counts": ("probe_counts_kernel", "probe_counts_tiles_kernel",
                      "probe_counts_queries_kernel"),
     "hash_histogram": ("hist_blocks", "bucket_totals", "bucket_totals_rows"),
-    "flash_attention": ("flash_attention_kernel", "attention_wgmma",
+    "flash_attention": ("attention_simt", "attention_wgmma",
                         "attention_split"),
-    "flash_attention_bwd": ("attention_bwd_dkdv", "attention_bwd_dkdv_wgmma"),
+    "flash_attention_bwd": ("attention_bwd_dkdv_simt",
+                            "attention_bwd_dkdv_wgmma"),
 }
 
 

@@ -109,15 +109,93 @@ def test_gqa_shape_checks():
     (1, 4096, 28, 4, 128, torch.float32, "split"),
     (16, 4096, 28, 4, 128, torch.bfloat16, "split"),      # short chunk
     (4, 300, 8, 2, 128, torch.float32, "split"),
-    (1, 1, 8, 8, 64, torch.bfloat16, "split")])
+    (1, 1, 8, 8, 64, torch.bfloat16, "split"),
+    # 16-bit prefill at d <= 128, d % 8 == 0: the tensor cores, float16
+    # too; d past 128 or off a multiple of 8, and float32: the CUDA cores.
+    (1024, 1024, 28, 4, 16, torch.bfloat16, "wgmma"),
+    (1024, 1024, 28, 4, 80, torch.bfloat16, "wgmma"),
+    (1024, 1024, 28, 4, 64, torch.float16, "wgmma"),
+    (1024, 1024, 28, 4, 128, torch.float16, "wgmma"),
+    (1024, 1024, 4, 4, 192, torch.bfloat16, "simt"),
+    (1024, 1024, 4, 2, 20, torch.bfloat16, "simt"),
+    (1024, 1024, 4, 4, 192, torch.float32, "simt"),
+    (1024, 1024, 4, 2, 16, torch.float32, "simt"),
+    (1, 4096, 28, 4, 128, torch.float16, "split")])
 def test_plan_picks_the_path(sq, skv, hq, hkv, d, dtype, path):
     plan = tfa._plan(sq, skv, hq, hkv, d, dtype)
     assert plan.path == path
     if path == "split":     # whole key tiles that cover the kv axis once
         assert plan.chunk % tfa.SPLIT_KEYS == 0
         assert (plan.splits - 1) * plan.chunk < skv <= plan.splits * plan.chunk
+    elif path == "simt":    # parts of each query tile's key tiles
+        assert 1 <= plan.splits <= tfa.SIMT_MAX_PARTS
     else:
         assert plan.splits == 1
+    if path in ("wgmma", "simt"):
+        assert tfa.NATIVE_DTYPES[path].count(dtype) == (dtype != torch.float32
+                                                        or path == "simt")
+
+
+@pytest.mark.parametrize("d,width", [(8, 64), (16, 64), (64, 64), (72, 128),
+                                     (80, 128), (128, 128)])
+def test_wgmma_width_holds_the_head_dim(d, width):
+    """The tensor-core instance a head dim runs: 64 columns up to 64, else
+    128, the tensor maps reading zeros past d."""
+    assert tfa._on_tensor_cores(d, torch.bfloat16)
+    assert tfa._wgmma_width(d) == width
+
+
+@pytest.mark.parametrize("d,width", [(1, 16), (16, 16), (20, 32), (33, 64),
+                                     (80, 128), (129, 192), (192, 192),
+                                     (200, 256), (256, 256)])
+def test_simt_width_holds_the_head_dim(d, width):
+    assert tfa._simt_width(d) == width
+
+
+@pytest.mark.parametrize("b,hq,sq,block_q,tile", [
+    (1, 4, 1024, 128, 16),      # d = 192's call: 256 CTAs, the most it has
+    (1, 28, 4096, 128, 64),     # 1,792 CTAs at the largest tile
+    (1, 28, 1024, 128, 64),     # 448 CTAs at 64 rows
+    (1, 16, 1024, 128, 32),     # 256 at 64 rows (short of 264), 512 at 32
+    (1, 8, 1024, 128, 16),      # 128 at 64 rows, 256 at 32, 512 at 16
+    (1, 4, 1024, 32, 16),       # block_q caps it
+    (1024, 64, 17, 128, 32),    # 17 rows: a tile of 64 is never needed
+    (1, 2, 20, 128, 16),        # too few rows to fill the SMs: the smallest
+])
+def test_simt_query_tile_fills_the_sms(b, hq, sq, block_q, tile):
+    """The "simt" query tile: the largest within ``block_q`` and Sq that
+    still puts two CTAs on each of the 132 SMs, else the smallest."""
+    got = tfa._query_tile(sq, b * hq, block_q)
+    assert got == tile and got <= max(16, block_q)
+    ctas = -(-sq // got) * b * hq
+    larger = [t for t in tfa.SIMT_TILES if got < t <= block_q and t // 2 < sq]
+    assert all(-(-sq // t) * b * hq < 2 * tfa.SM_COUNT for t in larger)
+    assert ctas >= 2 * tfa.SM_COUNT or got == 16
+    plan = tfa._plan(sq, sq, hq, hq, 192, torch.float32, batch=b,
+                     block_q=block_q)
+    assert plan.path == "simt" and plan.tile == got
+
+
+def test_simt_grid_at_the_d192_forward():
+    """q (1, 4, 1,024, 192) float32: 64 CTAs at the old 64-row tile; 256
+    of 64 threads at 16 rows (16,384 threads, 124 an SM), so each query
+    tile's 64 key tiles split into 4 parts: 1,024 CTAs."""
+    plan = tfa._plan(1024, 1024, 4, 4, 192, torch.float32)
+    assert plan == tfa.Plan("simt", 4, 1024, 16)
+    assert -(-1024 // plan.tile) * 4 * plan.splits == 1024
+
+
+@pytest.mark.parametrize("sq,heads,tile,key_tiles,parts", [
+    (1024, 4, 16, 64, 4),       # 16,384 threads: 4 parts (at most)
+    (1024, 28, 16, 64, 1),      # 114,688 threads >= 512 x 132
+    (1024, 16, 16, 64, 2),      # 65,536: 2 parts reach 67,584
+    (4096, 28, 64, 64, 1),      # not the smallest tile
+    (40, 2, 16, 2, 2),          # no more parts than key tiles
+])
+def test_simt_parts_fill_the_sms(sq, heads, tile, key_tiles, parts):
+    """Key-tile parts only where even 16-row tiles leave the SMs short of
+    512 threads each: enough to reach it, at most 4 and the key tiles."""
+    assert tfa._simt_parts(sq, heads, tile, key_tiles) == parts
 
 
 @pytest.mark.parametrize("batch", [1, 2])

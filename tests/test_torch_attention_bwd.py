@@ -77,17 +77,78 @@ def test_bwd_plan_slices_partition_heads_heaviest_first(shape, d):
 def test_bwd_plan_at_granite_and_off_the_tensor_cores():
     """granite-3-2b's call: two slices, 256 CTAs, the longest walking
     4,096 query rows (two heads of 2,048; a whole group of four with one
-    CTA a kv head's key tile), the last 256.  float32 and other head dims
-    take "simt"."""
+    CTA a kv head's key tile), the last 256.  16-bit dtypes at head dims
+    up to 128 in steps of 8 take "wgmma" too (bfloat16 d = 80, float16
+    d = 128); float32 and the other head dims take "simt"."""
     plan = tfa._bwd_plan(1, 32, 8, 2048, 2048, 64, torch.bfloat16, True)
     assert plan == tfa.BwdPlan("wgmma", 2, 256)
     walks = tfa._bwd_walks(2048, 2048, True)
     rows = 32 // 8 // plan.slices * tfa.BWD_QUERY_TILE
     assert walks[0] * rows == 4096 and walks[-1] * rows == 256
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 80),
-                     (torch.float16, 128)):
+    for dtype, d, path in ((torch.float32, 64, "simt"),
+                           (torch.bfloat16, 80, "wgmma"),
+                           (torch.float16, 128, "wgmma")):
         assert tfa._bwd_plan(1, 32, 8, 2048, 2048, d, dtype,
-                             True).path == "simt"
+                             True).path == path
+
+
+@pytest.mark.parametrize("dtype,d,path", [
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 80, "wgmma"),
+    (torch.float16, 64, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.bfloat16, 192, "simt"), (torch.bfloat16, 20, "simt"),
+    (torch.float16, 256, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_bwd_plan_routes_as_the_forward(dtype, d, path):
+    """The backward takes "wgmma" exactly where the forward's prefill
+    does, and each path reads the dtype natively."""
+    plan = tfa._bwd_plan(1, 8, 2, 300, 300, d, dtype, True)
+    assert plan.path == path
+    assert tfa._plan(300, 300, 8, 2, d, dtype).path == path
+    assert dtype in tfa.BWD_DTYPES[path]
+
+
+#: (B, Hq, Hkv, Sq, Skv, D) at the "simt" dK/dV grid: the D = 256 call
+#: (32 CTAs before its parts), granite-3-2b in float32, a ragged causal
+#: chunk, rows that see no key, one head.
+SIMT_PLAN_SHAPES = [
+    (1, 4, 2, 512, 512, 256),
+    (1, 32, 8, 2048, 2048, 64),
+    (1, 28, 4, 1000, 3000, 128),
+    (1, 4, 1, 40, 20, 192),
+    (1, 1, 1, 17, 17, 16),
+]
+
+
+@pytest.mark.parametrize("shape", SIMT_PLAN_SHAPES, ids=str)
+def test_simt_bwd_plan_fills_the_sms(shape):
+    """The "simt" dK/dV grid: (key tiles) x (parts) x (batch·kv heads),
+    the fewest parts that give every SM two CTAs and keep the longest
+    CTA within an SM's even share of the walks, never more parts than
+    the longest walk; the dQ tile as the forward's."""
+    b, hq, hkv, sq, skv, d = shape
+    g, w = hq // hkv, tfa._simt_width(d)
+    plan = tfa._bwd_plan(b, hq, hkv, sq, skv, d, torch.float32, True)
+    walks = tfa._bwd_walks(sq, skv, True, tfa.SIMT_BWD_KEYS[w],
+                           tfa.SIMT_BWD_ROWS[w])
+    assert plan.path == "simt"
+    assert plan.ctas == len(walks) * plan.slices * b * hkv
+    assert plan.tile == tfa._query_tile(sq, b * hq, 64)
+    longest = g * max(walks)
+    share = b * hkv * g * sum(walks) / tfa.SM_COUNT
+    assert plan.slices <= longest
+    ok = (plan.ctas >= 2 * tfa.SM_COUNT and -(-longest // plan.slices) <= share)
+    assert ok or plan.slices == longest
+    fewer = plan.slices - 1
+    assert fewer == 0 or (len(walks) * fewer * b * hkv < 2 * tfa.SM_COUNT
+                          or -(-longest // fewer) > share)
+
+
+def test_simt_bwd_grid_at_d256():
+    """q (1, 4, 512, 256), kv (1, 2, 512, 256) float32: 32 dK/dV CTAs at
+    one part (16 key tiles of 32 x 2 kv heads), 288 with the plan's 9;
+    dQ's 128 CTAs of 16 rows split their key tiles in 4 parts."""
+    plan = tfa._bwd_plan(1, 4, 2, 512, 512, 256, torch.float32, True)
+    assert plan == tfa.BwdPlan("simt", 9, 288, 16, 4)
 
 
 #: (Hq, Hkv, Skv, causal) at Sq = 24; the scores padded with -inf to
@@ -154,25 +215,31 @@ def cuda():
     return torch.device("cuda")
 
 
-#: (B, Hq, Hkv, Sq, Skv, D, causal) on the forward's "wgmma" path.
-FWD_LSE_SHAPES = [(1, 8, 2, 300, 300, 64, True),
-                  (2, 4, 4, 100, 260, 128, True),
-                  (1, 4, 1, 70, 40, 64, True),
-                  (1, 4, 2, 129, 200, 128, False)]
+#: (B, Hq, Hkv, Sq, Skv, D, causal) and dtype: bfloat16 on the
+#: forward's "wgmma" path, float32 on "simt" (D = 64, and 192 with rows
+#: that see no key).
+FWD_LSE_SHAPES = [((1, 8, 2, 300, 300, 64, True), torch.bfloat16),
+                  ((2, 4, 4, 100, 260, 128, True), torch.bfloat16),
+                  ((1, 4, 1, 70, 40, 64, True), torch.bfloat16),
+                  ((1, 4, 2, 129, 200, 128, False), torch.bfloat16),
+                  ((1, 8, 2, 300, 300, 64, True), torch.float32),
+                  ((1, 4, 2, 130, 100, 192, True), torch.float32)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", FWD_LSE_SHAPES, ids=str)
-def test_forward_lse_equals_plain(cuda, shape):
-    """The lse the forward kernel stores against ``ref.attention_lse``
-    (1e-3 on a log2 near 8: float32 sums in another order, the fast
-    exp2 and log2), +inf on the same rows; storing it leaves the output's
-    bits as they are."""
+@pytest.mark.parametrize("shape,dtype", FWD_LSE_SHAPES, ids=str)
+def test_forward_lse_equals_plain(cuda, shape, dtype):
+    """The lse the forward kernel stores ("wgmma" and "simt") against
+    ``ref.attention_lse`` (1e-3 on a log2 near 8: float32 sums in another
+    order, the fast exp2 and log2), +inf on the same rows; storing it
+    leaves the output's bits as they are."""
     b, hq, hkv, sq, skv, d, causal = shape
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
-    q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).bfloat16()
+    q = torch.randn(b, hq, sq, d, generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn(b, hkv, skv, d, generator=gen, device=cuda)
-            .bfloat16() for _ in range(2))
+            .to(dtype) for _ in range(2))
+    assert tfa._plan(sq, skv, hq, hkv, d, dtype).path == (
+        "wgmma" if dtype == torch.bfloat16 else "simt")
     out, lse = tfa._flash_attention_cuda(q, k, v, causal, d ** -0.5, 128,
                                          128, with_lse=True)
     plain = tfa._flash_attention_cuda(q, k, v, causal, d ** -0.5, 128, 128)
@@ -232,3 +299,77 @@ def test_backward_refuses_an_lse_off_the_forward_layout(cuda):
     for g, w in zip(got, ref.attention_backward(q, k, v, dout)):
         torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+#: (B, Hq, Hkv, Sq, Skv, D), dtype, path, tolerance: the calls this
+#: path change moved (bfloat16 d = 80 and float16 d = 128 onto the
+#: tensor cores) and the redesigned "simt" (bfloat16 d = 192, float32
+#: d = 256: its parts summed in order).
+ROUTE_CASES = [
+    ((1, 8, 2, 200, 200, 80), torch.bfloat16, "wgmma", 2e-2),
+    ((1, 8, 2, 200, 200, 128), torch.float16, "wgmma", 2e-3),
+    ((1, 4, 2, 150, 150, 192), torch.bfloat16, "simt", 2e-2),
+    ((1, 4, 2, 256, 256, 256), torch.float32, "simt", 1e-4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,path,tol", ROUTE_CASES, ids=str)
+def test_backward_equals_plain_on_each_route(cuda, shape, dtype, path, tol):
+    """The backward on its path, given the forward's lse, against
+    ``ref.attention_backward`` (2e-2 bf16, 2e-3 fp16, 1e-4 f32), in the
+    dtype natively (no float32 copy), and the same bits on two
+    launches."""
+    b, hq, hkv, sq, skv, d = shape
+    assert tfa._bwd_plan(b, hq, hkv, sq, skv, d, dtype, True).path == path
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, dout = (torch.randn(b, hq, sq, d, generator=gen, device=cuda)
+               .to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, hkv, skv, d, generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    out, lse = tfa._flash_attention_cuda(q, k, v, True, d ** -0.5, 128, 128,
+                                         with_lse=True)
+    assert lse is not None
+    got = tfa.flash_attention_backward(q, k, v, out, dout, lse=lse)
+    again = tfa.flash_attention_backward(q, k, v, out, dout, lse=lse)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, ref.attention_backward(q, k, v, dout)):
+        assert g.dtype == dtype and torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.float32, 200),
+                                     (torch.bfloat16, 192)])
+def test_simt_backward_with_the_forward_lse_equals_recomputing_it(cuda,
+                                                                  dtype, d):
+    """On "simt" the backward given the forward's lse launches no lse
+    pass (``attention_bwd_lse`` absent from the trace) and equals the
+    call that recomputes it, both at the plain version's tolerance (1e-4
+    f32, 2e-2 bf16): the forward here splits each query tile's keys in
+    parts, and its lse from their merge may differ from the one-pass
+    lse in the last bit."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, dout = (torch.randn(1, 8, 130, d, generator=gen, device=cuda)
+               .to(dtype) for _ in range(2))
+    k, v = (torch.randn(1, 2, 170, d, generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    assert tfa._bwd_plan(1, 8, 2, 130, 170, d, dtype, True).path == "simt"
+    out, lse = tfa._flash_attention_cuda(q, k, v, True, d ** -0.5, 128, 128,
+                                         with_lse=True)
+    given = tfa.flash_attention_backward(q, k, v, out, dout, lse=lse)
+    recomputed = tfa.flash_attention_backward(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, w in zip(given, recomputed,
+                       ref.attention_backward(q, k, v, dout)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tfa.flash_attention_backward(q, k, v, out, dout, lse=lse)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("attention_bwd_dkdv_simt" in n for n in names)
+    assert not any("attention_bwd_lse" in n for n in names)

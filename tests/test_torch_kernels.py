@@ -528,7 +528,10 @@ def attention_case(dev, dtype, b, hq, hkv, sq, skv, d):
     (torch.bfloat16, (1, 4, 2, 200, 1000, 64), "wgmma"),
     (torch.bfloat16, (2, 28, 4, 1, 4096, 128), "split"),
     (torch.float32, (1, 8, 2, 4, 300, 64), "split"),
-    (torch.float32, (1, 4, 2, 300, 300, 128), "simt")])
+    (torch.float32, (1, 4, 2, 300, 300, 128), "simt"),
+    (torch.float16, (1, 28, 4, 300, 300, 128), "wgmma"),
+    (torch.bfloat16, (1, 4, 2, 300, 300, 192), "simt"),
+    (torch.float32, (1, 4, 2, 300, 300, 20), "simt")])
 def test_flash_attention_kernel_deterministic(cuda, dtype, shape, path):
     """Each path gives the same bits on two calls (no atomics; the splits
     merge in a fixed order)."""
@@ -660,18 +663,27 @@ def attention_once(q, k, v, path, causal=True):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def prefill_path(d, dtype):
+    """Where a prefill runs: 16-bit dtypes at d <= 128, d % 8 == 0 on the
+    tensor cores, everything else on the CUDA cores."""
+    return ("wgmma" if dtype != torch.float32 and d <= 128 and d % 8 == 0
+            else "simt")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 80, 192, 256])
 def test_flash_attention_any_head_dim_and_dtype(cuda, d, dtype):
-    """Prefill on "simt" and decode on "split" at head dims the tensor
-    cores' path does not take (80 runs the wider instance, masked), in
-    float32, bfloat16 and float16 (float16 through float32)."""
+    """Prefill and decode ("split") at head dims past the first kernels'
+    (80 runs the wider instance, masked; on "wgmma" the tensor maps read
+    zeros past it), in float32, bfloat16 and float16: prefill in 16 bits
+    on "wgmma" up to 128, on "simt" past it, float32 on "simt"; decode
+    in float16 through float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for causal in (True, False):
         attention_once(*attention_case(cuda, dtype, 1, 6, 2, 70, 90, d),
-                       "simt", causal)
+                       prefill_path(d, dtype), causal)
         attention_once(*attention_case(cuda, dtype, 2, 6, 2, 3, 300, d),
                        "split", causal)
 
@@ -679,15 +691,15 @@ def test_flash_attention_any_head_dim_and_dtype(cuda, d, dtype):
 @pytest.mark.cuda
 def test_flash_attention_float16_at_the_tensor_core_widths(cuda):
     attention_once(*attention_case(cuda, torch.float16, 1, 4, 2, 100, 100, 64),
-                   "simt")
+                   "wgmma")
     attention_once(*attention_case(cuda, torch.float16, 1, 4, 2, 1, 100, 128),
                    "split")
 
 
 @pytest.mark.cuda
 def test_flash_attention_past_65535_heads(cuda):
-    """(batch, head) rows past the grid's y limit on "simt" (B·Hq) and
-    "split" (B·Hkv)."""
+    """(batch, head) rows past 65,535 on "simt" (B·Hq on a 1-D grid) and
+    "split" (B·Hkv past the grid's y limit)."""
     attention_once(*attention_case(cuda, torch.float32, 1024, 64, 64, 17, 17,
                                    16), "simt")
     attention_once(*attention_case(cuda, torch.float32, 2048, 64, 32, 1, 8,

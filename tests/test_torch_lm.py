@@ -653,8 +653,9 @@ def cuda():
 @pytest.mark.parametrize("head_dim,prompt", [(16, 6), (128, 64)])
 def test_model_attention_launches_the_kernel_and_equals_plain(
         cuda, monkeypatch, head_dim, prompt):
-    """qwen2-7b-smoke in bfloat16 on the card (head dim 16: "simt" and
-    "split"; 128 with a 64-token prompt: "wgmma" prefill): every
+    """qwen2-7b-smoke in bfloat16 on the card (head dim 16: "wgmma"
+    prefill, the width-64 instance reading zeros past 16, and "split"
+    decode; 128 with a 64-token prompt: "wgmma" prefill): every
     attention call of a prefill and a decode step launches
     ``flash_attention`` once and equals the plain version on the same
     inputs at rtol = atol = 2e-2 (the kernel tests' bf16 tolerance)."""
