@@ -179,8 +179,31 @@ Phases, each failing the run on any error:
    the resumed losses within 1e-5 relative of an uninterrupted run.
    ``--train-only`` runs this phase alone and prints its numbers as
    JSON: a tree and its parent compared turn about on one card.
+3l. The MoE and state-space families, after 3k, one model at a time,
+   each built at full width, its bytes reckoned against the card first
+   (``family_reckoning``), its bf16 weights drawn on the card from
+   ``--seed``, and everything freed after it (``FAMILY_MODELS``):
+   grok-1 (8 experts x 32,768, top-2; d_model 6,144, 48 / 8 heads,
+   depth cut to 4 of 64 layers) with 4 x 1,024 prompt tokens + 32 new,
+   kimi-k2 (384 experts x 2,048, top-8, one shared expert; d_model
+   7,168, 64 / 8 heads; depth cut to 1 of 61 layers) with 1 x 1,024 +
+   16, zamba2-1.2b (38 Mamba2 layers, 6 super-blocks sharing one
+   attention block) with 2 x 1,024 + 32 and xlstm-125m (12 mLSTM /
+   sLSTM layers, no attention) with 1 x 1,024 + 32, uncut.  Each greedy
+   request through ``Engine.generate``, the counts set to 0 before it
+   and read after: tokens in range, finite logits, the stats, and
+   ``flash_attention`` once an attention layer a step (zamba2: once a
+   super-block); prefill ms and the median decode-step ms beside their
+   bounds (``family_bounds``), tokens/s.  Then every attention call of
+   the prefill and first decode step against the plain version (rtol =
+   atol = 2e-2), the MoE's layer-0 dispatch plan of the prefill's router
+   ids built on the card and on the CPU and equal as full arrays (the
+   share of copies dropped logged), the xLSTM's sLSTM prefill walls,
+   the prefill against a ``backend="ref"`` model sharing the weights
+   (max logit difference and top-1 agreement, no bound) and the peak
+   bytes.
 6. One JSON line with every kernel's numbers (``flash_attention``'s
-   launches include phase 3j's and 3k's), the card line, and last
+   launches include phase 3j's, 3k's and 3l's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2657,23 +2680,17 @@ def lm_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def lm_request(model, params, i: int, seed: int, batch: int, plen: int,
-               n_new: int, max_len: int, device: torch.device) -> dict:
-    """One greedy request of phase 3j through ``Engine.generate``, the
-    counts set to 0 just before and read just after; returns them.
-    Every step is timed with CUDA events around the engine's step, and
-    its logits are checked finite on the card (one flag, read at the
-    end)."""
+def timed_generate(model, params, prompts: np.ndarray, n_new: int,
+                   max_len: int, device: torch.device) -> dict:
+    """One greedy ``Engine.generate``, the counts set to 0 just before
+    and read just after.  Every step is timed with CUDA events around
+    the engine's step, and its logits are checked finite on the card
+    (one flag, read at the end).  Returns the tokens, the stats, the
+    step ms (the prefill first), the wall seconds, the launch counts
+    and whether every logit was finite."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import _plan
-    from repro_torch.models.params import param_count
     from repro_torch.serving import Engine, ServeConfig
 
-    cfg = model.cfg
-    hq, hkv, d, nl = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim, \
-        cfg.n_layers
-    n_params, w_bytes = param_count(params), lm_bytes(params)
-    prompts = lm_prompts(seed + i, batch, plen, cfg.vocab_size)
     eng = Engine(model, params, ServeConfig(max_len=max_len))
     events, finite = [], torch.ones((), dtype=torch.bool, device=device)
     step = eng._step
@@ -2698,7 +2715,27 @@ def lm_request(model, params, i: int, seed: int, batch: int, plen: int,
     wall_s = time.perf_counter() - t0
     launched = dict(ops.LAUNCHES)
     del eng._step      # the wrapper refers to the engine: break the cycle
-    step_ms = [s.elapsed_time(e) for s, e in events]
+    return dict(tokens=tokens, stats=stats, launched=launched,
+                step_ms=[s.elapsed_time(e) for s, e in events],
+                wall_s=wall_s, finite=bool(finite))
+
+
+def lm_request(model, params, i: int, seed: int, batch: int, plen: int,
+               n_new: int, max_len: int, device: torch.device) -> dict:
+    """One greedy request of phase 3j through ``Engine.generate``
+    (``timed_generate``); returns its launch counts."""
+    from repro_torch.kernels.flash_attention import _plan
+    from repro_torch.models.params import param_count
+
+    cfg = model.cfg
+    hq, hkv, d, nl = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.n_layers
+    n_params, w_bytes = param_count(params), lm_bytes(params)
+    prompts = lm_prompts(seed + i, batch, plen, cfg.vocab_size)
+    run = timed_generate(model, params, prompts, n_new, max_len, device)
+    tokens, stats, launched, wall_s = (run[k] for k in (
+        "tokens", "stats", "launched", "wall_s"))
+    step_ms, finite = run["step_ms"], run["finite"]
     prefill_ms, decode_ms = step_ms[0], statistics.median(step_ms[1:])
     check(tokens.shape == (batch, n_new) and tokens.dtype == np.int32
           and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
@@ -3261,6 +3298,349 @@ def run_lm_training(seed: int, device: torch.device) -> dict:
     return counts, dict(step_ms=med, step_ms_all=step_ms, bound_ms=bound,
                         peak=peak, microbatch_wall_ms=walls["microbatch"],
                         **host)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3l: the MoE and state-space families, served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers on the card (None: the full depth), greedy requests as
+# (batch, prompt length, new tokens)).  grok-1 and kimi-k2 are cut in
+# depth to what 80 GB holds in bf16 beside the init's float32 draw of
+# one stacked expert leaf: 4 of 64 layers (42.6 GB of weights) and 1 of
+# 61 (38.9 GB; 2 layers would be 73.1 GB).
+FAMILY_MODELS = (
+    ("grok-1-314b", 4, ((4, 1024, 32),)),
+    ("kimi-k2-1t-a32b", 1, ((1, 1024, 16),)),
+    ("zamba2-1.2b", None, ((2, 1024, 32),)),
+    ("xlstm-125m", None, ((1, 1024, 32),)),
+)
+
+
+def tree_bytes_of(defs, dtype=torch.bfloat16) -> int:
+    """Bytes of the tensors a ParamDef tree makes (in ``dtype`` where a
+    leaf names none)."""
+    from repro_torch.models.params import abstract_params, tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(abstract_params(defs, dtype)))
+
+
+def family_reckoning(model, batch: int, plen: int, max_len: int
+                     ) -> tuple[float, str]:
+    """Device bytes of one model of phase 3l: its bf16 weights, and the
+    larger of the init's float32 draw of its largest leaf and what a
+    request holds beside the weights — two caches (the kernel model's
+    and the plain one's), the prefill's logits twice with the
+    comparison's four float32 rows, and the MoE buffers (the gathered tokens and the experts' three
+    (E, C, f) products, the combine's (N·k, d) float32 rows)."""
+    from repro_torch.models.moe import _capacity
+    from repro_torch.models.params import abstract_params, tree_leaves
+    cfg = model.cfg
+    w = tree_bytes_of(model.defs)
+    draw = 4 * max(t.numel() for t in tree_leaves(abstract_params(
+        model.defs)))
+    cache = tree_bytes_of(model.cache_defs(batch, max_len))
+    logits = 2 * batch * plen * cfg.padded_vocab * 2 + \
+        4 * plen * cfg.padded_vocab * 4
+    moe = 0
+    if cfg.family == "moe":
+        n = batch * plen
+        moe = cfg.n_experts * _capacity(cfg, n) * (
+            cfg.d_model + 3 * cfg.expert_d_ff) * 2 + \
+            2 * n * cfg.top_k * cfg.d_model * 4
+    run = 2 * cache + logits + moe
+    return w + max(draw, run), (
+        f"weights {w} + max(float32 draw {draw}, 2 caches {2 * cache} + "
+        f"logits {logits} + moe buffers {moe})")
+
+
+def family_attention_layers(cfg) -> int:
+    """flash_attention calls a step: every layer of a decoder, one a
+    super-block for the hybrid's shared block, none in xLSTM."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def family_bounds(model, n_params: int, batch: int, plen: int,
+                  kv: int) -> dict:
+    """The least times of a prefill and of a decode step at ``kv`` keys.
+
+    Prefill, operations at 989 TFLOP/s: 2 a weight a token for every
+    weight a token meets (the embedding is a gather; of the experts only
+    the top-k a token is routed to), causal attention's 4·D a visible
+    (query, key) pair a head, and the SSD scan's products (each chunk's
+    L×L (c·b) and (L×L)·(L×P) contraction, its chunk state and the
+    state's readout).  Decode, bytes at 3.35 TB/s: every weight but the
+    embedding table read once (every expert: each runs on a buffer of
+    at least 8 slots), the valid KV cache read, the float32 recurrent
+    states read and written."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import xlstm as XL
+    cfg = model.cfg
+    emb = cfg.padded_vocab * cfg.d_model
+    tokens = batch * plen
+    active = n_params - emb
+    if cfg.family == "moe":
+        active -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 \
+            * cfg.d_model * cfg.expert_d_ff
+    n_attn = family_attention_layers(cfg)
+    pairs = plen * (plen + 1) // 2
+    ops = 2 * active * tokens + n_attn * 4 * batch * cfg.padded_heads \
+        * cfg.head_dim * pairs
+    L = min(cfg.ssm_chunk, plen)
+    state = 0
+    if cfg.family == "hybrid":
+        _, H, _ = SSM.mamba_dims(cfg)
+        N, P = cfg.ssm_state, cfg.ssm_head_dim
+        ops += cfg.n_layers * (2 * tokens * L * (N + H * P)
+                               + 4 * tokens * H * P * N)
+        state = tree_bytes_of(model.cache_defs(batch, 1)["states"],
+                              torch.float32)
+    elif cfg.family == "ssm":
+        _, H, P = XL._dims(cfg)
+        n_mlstm = sum(1 for i in range(cfg.n_layers)
+                      if (i + 1) % cfg.slstm_every)
+        ops += n_mlstm * (2 * tokens * L * H * (2 * P + 1)
+                          + 4 * tokens * H * (P + 1) * P)
+        state = tree_bytes_of(model.cache_defs(batch, 1), torch.float32)
+    kv_bytes = 2 * n_attn * batch * kv * cfg.n_kv_heads * cfg.head_dim * 2
+    pre, pre_by = bound_ms(2 * n_params, ops, HALF_OPS_PER_S)
+    dec, dec_by = bound_ms(2 * (n_params - emb) + kv_bytes + 2 * state, 0)
+    return dict(prefill_bound_ms=pre, prefill_by=pre_by, prefill_ops=ops,
+                decode_bound_ms=dec, decode_by=dec_by)
+
+
+def family_checks(model, params, cfg, batch: int, plen: int, max_len: int,
+                  seed: int, device: torch.device) -> dict:
+    """Phase 3l's checks on one request's prompts, their launches not
+    counted: every attention call of the prefill and of the first decode
+    step against the plain version on the same inputs (rtol = atol =
+    ``LM_ATTN_TOL``); MoE: layer 0's dispatch plan of the prefill's
+    router ids rebuilt on the CPU and equal as full arrays, and the
+    share of routed copies dropped; xLSTM: the sLSTM layers' host wall
+    over the prefill; then the whole prefill against a
+    ``backend="ref"`` model sharing the weights (max abs logit
+    difference and top-1 agreement: logged, no bound), the kernel
+    model's prefill timed again there, warm."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import zeros_of
+    from repro_torch.serving import Engine, ServeConfig
+
+    prompts = lm_prompts(seed, batch, plen, cfg.vocab_size)
+    errs, excess, plans, slstm_s = [], [], [], []
+    kernel_attention, plan_fn = L.multihead_attention, MOE._dispatch_plan
+    slstm_fn = XL.slstm_forward
+
+    def hooked(q, k, v, **kw):
+        got = kernel_attention(q, k, v, **kw)
+        want = kernel_attention(q, k, v, **dict(kw, backend="ref")).float()
+        diff = (got.float() - want).abs()
+        errs.append(float(diff.max()))
+        excess.append(float((diff - LM_ATTN_TOL * want.abs()).max()))
+        return got
+
+    def planned(ids, n_experts, capacity):
+        out = plan_fn(ids, n_experts, capacity)
+        plans.append((ids, n_experts, capacity, out))
+        return out
+
+    def timed_slstm(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = slstm_fn(*args, **kw)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t0)
+        return out
+
+    L.multihead_attention, MOE._dispatch_plan = hooked, planned
+    XL.slstm_forward = timed_slstm
+    try:
+        Engine(model, params, ServeConfig(max_len=max_len)).generate(
+            prompts, 2)
+    finally:
+        L.multihead_attention, MOE._dispatch_plan = kernel_attention, plan_fn
+        XL.slstm_forward = slstm_fn
+    n_attn = family_attention_layers(cfg)
+    out = {}
+    check(len(errs) == 2 * n_attn,
+          f"family {cfg.arch}: {len(errs)} hooked attention calls, want "
+          f"{2 * n_attn}")
+    if n_attn:
+        check(max(excess) <= LM_ATTN_TOL,
+              f"family {cfg.arch}: attention differs from the plain version "
+              f"beyond rtol = atol = {LM_ATTN_TOL}: |diff| - rtol |plain| up "
+              f"to {max(excess)}")
+        out.update(attn_calls=len(errs),
+                   attn_max_abs_err_prefill=max(errs[:n_attn]),
+                   attn_max_abs_err_decode=max(errs[n_attn:]),
+                   attn_excess=max(excess))
+    if cfg.family == "moe":
+        check(len(plans) == 2 * cfg.n_layers,
+              f"family {cfg.arch}: {len(plans)} dispatch plans")
+        ids, n_experts, capacity, (gather, valid) = plans[0]
+        cpu_gather, cpu_valid = plan_fn(ids.cpu(), n_experts, capacity)
+        check(ids.device.type == device.type
+              and torch.equal(gather.cpu(), cpu_gather)
+              and torch.equal(valid.cpu(), cpu_valid),
+              f"family {cfg.arch}: layer 0's dispatch plan on the card "
+              f"differs from the CPU's")
+        kept = int(valid.sum())
+        out.update(plan_shape=tuple(gather.shape), plan_capacity=capacity,
+                   copies=ids.numel(), kept=kept,
+                   dropped_share=1 - kept / ids.numel())
+    if cfg.family == "ssm":
+        n_slstm = sum(1 for i in range(cfg.n_layers)
+                      if (i + 1) % cfg.slstm_every == 0)
+        check(len(slstm_s) == n_slstm,
+              f"family {cfg.arch}: {len(slstm_s)} sLSTM prefills timed")
+        out.update(slstm_prefill_s=slstm_s)
+
+    ref_model = build_model(cfg, backend="ref")
+    toks = torch.as_tensor(prompts, device=device)
+    with torch.no_grad():
+        cache = zeros_of(model.cache_defs(batch, max_len), device=device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got, _ = model.decode_step(params, cache, toks, 0)
+        end.record()
+        end.synchronize()
+        out["warm_prefill_ms"] = start.elapsed_time(end)
+        del cache
+        cache = zeros_of(model.cache_defs(batch, max_len), device=device)
+        want, _ = ref_model.decode_step(params, cache, toks, 0)
+        del cache
+        v = cfg.vocab_size
+        out["logit_diff"] = max(
+            float((got[b].float() - want[b].float()).abs().max())
+            for b in range(batch))
+        out["top1"] = float((got[..., :v].argmax(-1)
+                             == want[..., :v].argmax(-1)).float().mean())
+        del got, want
+    return out
+
+
+def serve_family(arch: str, depth, requests, seed: int,
+                 device: torch.device) -> tuple[dict, dict]:
+    """One model of phase 3l: built at full width (cut to ``depth``
+    layers where given), its bytes reckoned and held to the card, bf16
+    weights drawn on the card from ``seed``, then each greedy request
+    through ``Engine.generate`` (``timed_generate``; tokens in range,
+    every step's logits finite, the stats the reference's,
+    ``flash_attention`` once an attention layer a step) beside its
+    bounds, then ``family_checks``.  Frees all it made.  Returns the
+    requests' launch counts and the numbers logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.params import param_count
+
+    cfg = get_config(arch)
+    full = cfg.n_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    cut = "full depth" if depth is None else \
+        f"depth cut to {depth} of {full} layers"
+    model = build_model(cfg)
+    max_len = max(p + n for _, p, n in requests)
+    need, how = family_reckoning(model, max(b for b, _, _ in requests),
+                                 max(p for _, p, _ in requests), max_len)
+    ok, free = fits(need, device)
+    check(ok, f"family {arch}: reckoned {need:.0f} bytes ({how}) do not "
+              f"fit the card's {free:.0f} free with {SERVE_MARGIN} to spare")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    check(n_params == param_count(model.abstract()),
+          f"family {arch}: {n_params} parameters, the defs say otherwise")
+    n_attn = family_attention_layers(cfg)
+    log(f"family {arch}: {cfg.family}, {cut}, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} (padded {cfg.padded_heads}) / kv {cfg.n_kv_heads}, "
+        f"head_dim {cfg.head_dim}, experts {cfg.n_experts} x "
+        f"{cfg.expert_d_ff} top-{cfg.top_k} (+{cfg.n_shared_experts} "
+        f"shared), ssm_state {cfg.ssm_state}, vocab {cfg.vocab_size}; "
+        f"param_count {n_params}, {2 * n_params} bytes bf16 drawn in "
+        f"{init_s:.2f} s; reckoned {need:.0f} bytes ({how}); "
+        f"{n_attn} attention layers a step")
+
+    counts = {}
+    res = dict(arch=arch, family=cfg.family, layers=cfg.n_layers,
+               full_layers=full, params=n_params, requests=[])
+    for i, (batch, plen, n_new) in enumerate(requests):
+        prompts = lm_prompts(seed + i, batch, plen, cfg.vocab_size)
+        run = timed_generate(model, params, prompts, n_new, max_len, device)
+        tokens, launched = run["tokens"], run["launched"]
+        label = f"family {arch} request {i + 1}"
+        check(tokens.shape == (batch, n_new) and tokens.dtype == np.int32
+              and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              f"{label}: tokens misshapen or out of range")
+        check(run["finite"], f"{label}: logits not finite")
+        check(run["stats"] == {"prompt_len": float(plen),
+                               "generated": float(n_new)},
+              f"{label}: stats {run['stats']}")
+        check(launched["flash_attention"] == n_attn * n_new,
+              f"{label}: {launched['flash_attention']} flash_attention "
+              f"launches, want {n_attn * n_new}")
+        prefill_ms = run["step_ms"][0]
+        decode_ms = statistics.median(run["step_ms"][1:])
+        b = family_bounds(model, n_params, batch, plen, plen + n_new // 2)
+        r = dict(batch=batch, prompt=plen, n_new=n_new,
+                 prefill_ms=prefill_ms, decode_ms=decode_ms,
+                 wall_s=run["wall_s"],
+                 tokens_per_s=batch * n_new / run["wall_s"],
+                 decode_tokens_per_s=batch / decode_ms * 1e3,
+                 launches=launched["flash_attention"], **b)
+        res["requests"].append(r)
+        log(f"{label} ok: B={batch} P={plen} n_new={n_new} prefill_ms="
+            f"{prefill_ms:.3f} (bound {b['prefill_bound_ms']:.3f}, "
+            f"{b['prefill_by']}; {b['prefill_ops']:.4g} operations) "
+            f"decode_step_ms_median={decode_ms:.3f} (bound "
+            f"{b['decode_bound_ms']:.3f}, {b['decode_by']}; {n_new - 1} "
+            f"steps) "
+            f"wall_s={run['wall_s']:.3f} tokens_per_s="
+            f"{r['tokens_per_s']:.1f} decode_tokens_per_s="
+            f"{r['decode_tokens_per_s']:.1f} flash_attention launches "
+            f"{launched['flash_attention']} (= {n_attn} x {n_new})")
+        for name, c in launched.items():
+            counts[name] = counts.get(name, 0) + c
+
+    batch, plen, _ = requests[0]
+    checks = family_checks(model, params, cfg, batch, plen, max_len, seed,
+                           device)
+    res.update(checks)
+    peak = torch.cuda.max_memory_allocated()
+    res["peak_bytes"] = peak
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"family {arch} ok: {checks}; peak_bytes {peak} "
+        f"(max_memory_allocated; reckoned {need:.0f}); allocated {before} "
+        f"bytes before, {torch.cuda.memory_allocated()} after")
+    return counts, res
+
+
+def run_model_families(seed: int, device: torch.device
+                       ) -> tuple[dict, list]:
+    """Phase 3l: ``serve_family`` for each of ``FAMILY_MODELS`` in turn.
+    Returns the summed launch counts and each model's numbers."""
+    counts, results = {}, []
+    t0 = time.perf_counter()
+    for arch, depth, requests in FAMILY_MODELS:
+        launched, res = serve_family(arch, depth, requests, seed, device)
+        results.append(res)
+        for name, c in launched.items():
+            counts[name] = counts.get(name, 0) + c
+    log(f"family phase ok: {len(results)} models in "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts, results
 
 
 # ---------------------------------------------------------------------------
@@ -4290,6 +4670,9 @@ def main(argv=None) -> int:
         launches[name] += c
     train_counts, _ = run_lm_training(args.seed, dev)
     for name, c in train_counts.items():
+        launches[name] += c
+    family_counts, _ = run_model_families(args.seed, dev)
+    for name, c in family_counts.items():
         launches[name] += c
 
     # The heaviest case of each kernel's path goes into the line; the

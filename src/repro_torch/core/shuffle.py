@@ -193,18 +193,21 @@ class ShardGrid(Grid):
         """Per-rank ``(K, ...)`` send buffers, chunk d for coordinate d
         along ``grid_axis``, -> ``(K, ...)`` received, chunk s from
         coordinate s: one ``all_to_all_single`` a column."""
-        group, perm = self._axis_groups[grid_axis]
+        return x.map(lambda a: self.all_to_all_tensor(a, grid_axis))
 
-        def one(a):
-            send = _as_bytes(a)
-            if perm is not None:            # chunk g for group rank g
-                send = torch.empty_like(send).index_copy_(0, perm, send)
-            out = torch.empty_like(send)
-            dist.all_to_all_single(out, send, group=group)
-            if perm is not None:
-                out = out.index_select(0, perm)
-            return _from_bytes(out, a)
-        return x.map(one)
+    def all_to_all_tensor(self, a: torch.Tensor,
+                          grid_axis: int) -> torch.Tensor:
+        """:meth:`all_to_all` of one tensor: ``(K, ...)``, chunk d sent
+        to coordinate d along ``grid_axis``, chunk s received from s."""
+        group, perm = self._axis_groups[grid_axis]
+        send = _as_bytes(a)
+        if perm is not None:                # chunk g for group rank g
+            send = torch.empty_like(send).index_copy_(0, perm, send)
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, group=group)
+        if perm is not None:
+            out = out.index_select(0, perm)
+        return _from_bytes(out, a)
 
     def all_gather(self, x: Relation, grid_axis: int) -> Relation:
         """Per-rank x -> ``(K, ...)``, chunk s from coordinate s along

@@ -4,7 +4,8 @@ Port of ``src/repro/models/lm.py``.  A built model exposes:
   defs / init / axes      — ParamDef tree, materializer, logical axes
   loss(params, batch, planner)           -> scalar loss (forward)
   decode_step(params, cache, tokens, pos, planner) -> (logits, cache)
-  cache_defs(batch, max_len)             -> ParamDef tree for the KV cache
+  cache_defs(batch, max_len)             -> ParamDef tree for the KV and
+                                            recurrent-state cache
 
 Layer stacks are stacked on a leading axis; the reference's
 ``lax.scan`` over them is a Python loop over each layer's views of the
@@ -13,18 +14,24 @@ attention runs on the CUDA ``flash_attention`` kernel on the card and
 on the plain version on the CPU (``build_model(cfg, backend=...)``;
 ``models/layers.py``).
 
+The families built here: dense and moe (``build_decoder_lm``; the moe
+block's expert layer is ``models/moe.py``, its auxiliary loss summed
+over the layers into the loss at 0.01), ssm (``build_xlstm_lm``: mLSTM
+and sLSTM cells, ``models/xlstm.py``) and hybrid (``build_hybrid_lm``:
+Mamba2 super-blocks sharing one attention block, ``models/ssm.py``).
+A recurrent state is replaced, not written in place: each step returns
+new state tensors, as the reference's scan does.  encdec and vlm raise
+``NotImplementedError`` naming ROADMAP A15e.
+
 The loss is differentiable end to end: on the card the attention's
 gradient is the ``flash_attention_bwd`` kernel
 (``kernels.flash_attention.FlashAttentionFn``).  With ``cfg.remat`` the
-train path (the loss, no cache) recomputes each block in the backward
-pass (``torch.utils.checkpoint``, non-reentrant), as the reference's
-``jax.checkpoint``; ``remat_policy="dots"`` keeps the products with no
-batch dims (the weight matmuls, ``aten.mm`` / ``aten.addmm``) and
-recomputes the rest, as ``dots_with_no_batch_dims_saveable`` does.
-
-This slice builds the dense family (ROADMAP A15a, A15b).  The other
-families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them: moe A15c, ssm and hybrid A15d, encdec and vlm A15e.
+decoder's train path (the loss, no cache) recomputes each block in the
+backward pass (``torch.utils.checkpoint``, non-reentrant), as the
+reference's ``jax.checkpoint``; ``remat_policy="dots"`` keeps the
+products with no batch dims (the weight matmuls, ``aten.mm`` /
+``aten.addmm``) and recomputes the rest, as
+``dots_with_no_batch_dims_saveable`` does.
 """
 
 from __future__ import annotations
@@ -39,9 +46,12 @@ from torch.utils import checkpoint as ckpt
 from ..distributed.sharding import Planner
 from ..kernels import _build
 from . import layers as L
+from . import moe as MOE
+from . import ssm as SSM
+from . import xlstm as XL
 from .config import ModelConfig
 from .params import (ParamDef, abstract_params, axes_of, init_params,
-                     stack_layers, tree_leaves, tree_map)
+                     stack_layers, tree_leaves, tree_map, zeros_of)
 
 
 # ---------------------------------------------------------------------------
@@ -53,15 +63,36 @@ def _dense_block_defs(cfg: ModelConfig) -> Dict:
             "ln2": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
 
 
-def _dense_block(p, x, cfg, planner, positions, cache, cache_pos,
-                 backend="auto", angles=None):
-    h, new_cache = L.attention_forward(
+def _moe_block_defs(cfg: ModelConfig) -> Dict:
+    return {"ln1": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
+            "ln2": L.norm_defs(cfg), "moe": MOE.moe_defs(cfg)}
+
+
+def _attention_residual(p, x, cfg, planner, positions, cache, cache_pos,
+                        backend, angles):
+    h, _ = L.attention_forward(
         p["attn"], L.apply_norm(p["ln1"], x), cfg=cfg, planner=planner,
         positions=positions, causal=True, cache=cache, cache_pos=cache_pos,
         backend=backend, angles=angles)
-    x = x + h
+    return x + h
+
+
+def _dense_block(p, x, cfg, planner, positions, cache, cache_pos,
+                 backend="auto", angles=None):
+    """The block's output and its auxiliary loss (none: ``None``)."""
+    x = _attention_residual(p, x, cfg, planner, positions, cache, cache_pos,
+                            backend, angles)
     x = x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x), cfg, planner)
-    return x, new_cache
+    return x, None
+
+
+def _moe_block(p, x, cfg, planner, positions, cache, cache_pos,
+               backend="auto", angles=None):
+    x = _attention_residual(p, x, cfg, planner, positions, cache, cache_pos,
+                            backend, angles)
+    m, aux = MOE.moe_forward(p["moe"], L.apply_norm(p["ln2"], x), cfg,
+                             planner)
+    return x + m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -185,52 +216,64 @@ def _remat(cfg: ModelConfig, fn: Callable) -> Callable:
     return lambda *args: ckpt.checkpoint(fn, *args, **kw)
 
 
-def build_decoder_lm(cfg: ModelConfig, backend: str = "auto") -> Model:
-    """Uniform decoder stacks: the dense family."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.arch}: the moe block (models/moe.py) is ROADMAP A15c")
+def _check_backend(backend: str) -> None:
     if backend not in _build.BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of "
                          f"{_build.BACKENDS}")
-    block_defs = _dense_block_defs(cfg)
+
+
+def _rope_angles(cfg: ModelConfig, positions):
+    """RoPE's angles once for all layers (the reference recomputes them
+    in every layer; the values are the same)."""
+    return L.rope_angles(positions, cfg.head_dim, cfg.rope_theta) \
+        if cfg.pos == "rope" else None
+
+
+def build_decoder_lm(cfg: ModelConfig, backend: str = "auto") -> Model:
+    """Uniform decoder stacks: the dense and moe families."""
+    _check_backend(backend)
+    moe = cfg.family == "moe"
+    block_defs = _moe_block_defs(cfg) if moe else _dense_block_defs(cfg)
+    block_fn = _moe_block if moe else _dense_block
     defs = dict(_embed_defs(cfg), blocks=stack_layers(cfg.n_layers,
                                                       block_defs))
 
-    # The dense block has no auxiliary loss: the reference adds
-    # 0.01 x its zeros, which changes no bit of the loss.
     def run_stack(params, x, planner, positions, caches=None, cache_pos=None):
-        # RoPE's angles once for all layers (the reference's scan
-        # recomputes them in every layer; the values are the same).
-        angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta) \
-            if cfg.pos == "rope" else None
+        """The stack's output and its auxiliary loss summed over the
+        layers (None for the dense block, which has none: the
+        reference adds 0.01 x its zeros, which changes no bit)."""
+        angles = _rope_angles(cfg, positions)
 
         def block(p_l, h, cache_l=None):
-            return _dense_block(p_l, h, cfg, planner, positions, cache_l,
-                                cache_pos, backend, angles)[0]
+            return block_fn(p_l, h, cfg, planner, positions, cache_l,
+                            cache_pos, backend, angles)
 
         # remat only on the train path (no cache), where a backward runs.
         fn = _remat(cfg, block) if (cfg.remat and caches is None
                                     and torch.is_grad_enabled()) else block
+        aux = None
         for i, p_l in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-            x = fn(p_l, x) if caches is None else fn(p_l, x,
-                                                     _layer(caches, i))
-        return x
+            x, aux_l = fn(p_l, x) if caches is None else \
+                fn(p_l, x, _layer(caches, i))
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
+        return x, aux
 
     def loss_fn(params, batch, planner):
         tokens = batch["tokens"]
         positions = _positions(tokens)
         x = _embed(params, tokens, cfg, planner, positions)
-        h = run_stack(params, x, planner, positions)
-        return _shift_loss(h, params, tokens, cfg, planner)
+        h, aux = run_stack(params, x, planner, positions)
+        loss = _shift_loss(h, params, tokens, cfg, planner)
+        return loss if aux is None else loss + 0.01 * aux
 
     def decode_fn(params, cache, tokens, pos, planner, extras,
                   last_only=False):
         pos = int(pos)
         positions = _positions(tokens, pos)
         x = _embed(params, tokens, cfg, planner, positions)
-        h = run_stack(params, x, planner, positions, caches=cache,
-                      cache_pos=pos)
+        h, _ = run_stack(params, x, planner, positions, caches=cache,
+                         cache_pos=pos)
         if last_only:
             h = h[:, -1:]
         h = L.apply_norm(params["ln_f"], h)
@@ -244,12 +287,198 @@ def build_decoder_lm(cfg: ModelConfig, backend: str = "auto") -> Model:
 
 
 # ---------------------------------------------------------------------------
+# xLSTM (mixed mLSTM/sLSTM stack, unrolled — small models)
+# ---------------------------------------------------------------------------
+
+def _xlstm_layer_kinds(cfg: ModelConfig):
+    return ["slstm" if cfg.slstm_every and (i + 1) % cfg.slstm_every == 0
+            else "mlstm" for i in range(cfg.n_layers)]
+
+
+def build_xlstm_lm(cfg: ModelConfig, backend: str = "auto") -> Model:
+    """The ssm family: an unrolled stack of mLSTM and sLSTM blocks (no
+    attention, so ``backend`` has nothing to pick)."""
+    _check_backend(backend)
+    kinds = _xlstm_layer_kinds(cfg)
+    blocks = tuple({"ln": L.norm_defs(cfg),
+                    "cell": XL.mlstm_defs(cfg) if kind == "mlstm"
+                    else XL.slstm_defs(cfg)} for kind in kinds)
+    defs = dict(_embed_defs(cfg), blocks=blocks)
+
+    def run(params, x, planner, states=None):
+        new_states = []
+        for i, kind in enumerate(kinds):
+            p = params["blocks"][i]
+            st = None if states is None else states[i]
+            xin = L.apply_norm(p["ln"], x)
+            forward, decode = (
+                (XL.mlstm_forward, XL.mlstm_decode_step) if kind == "mlstm"
+                else (XL.slstm_forward, XL.slstm_decode_step))
+            if x.shape[1] == 1 and st is not None:
+                h, ns = decode(p["cell"], xin, cfg, st)
+            else:
+                h, ns = forward(p["cell"], xin, cfg, planner, st)
+            x = x + h
+            new_states.append(ns)
+        return x, tuple(new_states)
+
+    def loss_fn(params, batch, planner):
+        tokens = batch["tokens"]
+        x = _embed(params, tokens, cfg, planner)
+        h, _ = run(params, x, planner)
+        return _shift_loss(h, params, tokens, cfg, planner)
+
+    def decode_fn(params, cache, tokens, pos, planner, extras,
+                  last_only=False):
+        x = _embed(params, tokens, cfg, planner)
+        h, new_states = run(params, x, planner, states=cache)
+        if last_only:
+            h = h[:, -1:]
+        h = L.apply_norm(params["ln_f"], h)
+        return h @ params["lm_head"], new_states
+
+    def cache_defs(batch, max_len):
+        d_in, H, P = XL._dims(cfg)
+        d = cfg.d_model
+        row = ("batch", None)
+        out = []
+        for kind in kinds:
+            if kind == "mlstm":
+                out.append({"mlstm": ParamDef(
+                    (batch, H, 1, P + 1, P),
+                    ("batch", "ssm_heads", None, None, None),
+                    init="zeros", dtype="float32")})
+            else:
+                out.append({"slstm": (
+                    ParamDef((batch, d), row, init="zeros"),
+                    *(ParamDef((batch, d), row, init="zeros",
+                               dtype="float32") for _ in range(3)))})
+        return tuple(out)
+
+    return Model(cfg, defs, loss_fn, decode_fn, cache_defs)
+
+
+# ---------------------------------------------------------------------------
+# Zamba-style hybrid: Mamba2 super-blocks + one shared attention block
+# ---------------------------------------------------------------------------
+
+def build_hybrid_lm(cfg: ModelConfig, backend: str = "auto") -> Model:
+    """The hybrid family: ``n_layers // shared_attn_every`` super-blocks
+    of ``shared_attn_every`` Mamba2 layers, each followed by the one
+    shared attention block (its own KV cache a super-block), then a tail
+    of the remaining Mamba2 layers."""
+    _check_backend(backend)
+    k = cfg.shared_attn_every
+    n_super = cfg.n_layers // k
+    tail = cfg.n_layers % k
+    mamba_defs_one = {"ln": L.norm_defs(cfg), "mix": SSM.mamba_defs(cfg)}
+    defs = dict(
+        _embed_defs(cfg),
+        super_blocks=stack_layers(n_super, stack_layers(k, mamba_defs_one)),
+        tail_blocks=stack_layers(tail, mamba_defs_one) if tail else {},
+        shared_attn={"ln": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
+                     "ln2": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)},
+    )
+
+    def mamba_stack(blocks, n, states, x, planner, decode):
+        """``n`` stacked Mamba2 layers; their new states stacked."""
+        new = []
+        for p_l, st_l in zip(_unstack(blocks, n), _unstack(states, n)):
+            xin = L.apply_norm(p_l["ln"], x)
+            if decode:
+                h, ns = SSM.mamba_decode_step(p_l["mix"], xin, cfg, st_l)
+            else:
+                h, ns = SSM.mamba_forward(p_l["mix"], xin, cfg, planner,
+                                          st_l)
+            x = x + h
+            new.append(ns)
+        return x, {name: torch.stack([ns[name] for ns in new])
+                   for name in ("ssd", "conv")}
+
+    def shared_apply(p, x, planner, positions, cache, cache_pos, angles):
+        h, _ = L.attention_forward(
+            p["attn"], L.apply_norm(p["ln"], x), cfg=cfg, planner=planner,
+            positions=positions, causal=True, cache=cache,
+            cache_pos=cache_pos, backend=backend, angles=angles)
+        x = x + h
+        return x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x), cfg,
+                                 planner)
+
+    def mamba_state_defs(batch):
+        d_in, H, conv_dim = SSM.mamba_dims(cfg)
+        # stack_layers keeps no dtype: the stacked ssd state is made in
+        # the cache's dtype, as the reference's is, and the first step
+        # replaces it with its float32 state.
+        return {"ssd": ParamDef((batch, 1, H, cfg.ssm_head_dim,
+                                 cfg.ssm_state),
+                                ("batch", None, "ssm_heads", None, None),
+                                init="zeros", dtype="float32"),
+                "conv": ParamDef((batch, cfg.ssm_conv - 1, conv_dim),
+                                 ("batch", None, "ff"), init="zeros")}
+
+    def state_defs(batch):
+        one = mamba_state_defs(batch)
+        return {"mamba": stack_layers(n_super, stack_layers(k, one)),
+                "tail": stack_layers(tail, one) if tail else {}}
+
+    def run(params, x, planner, positions, states, attn_caches, cache_pos,
+            decode):
+        angles = _rope_angles(cfg, positions)
+        supers = _unstack(params["super_blocks"], n_super)
+        sts = _unstack(states["mamba"], n_super)
+        new_states = []
+        for i in range(n_super):
+            x, ns = mamba_stack(supers[i], k, sts[i], x, planner, decode)
+            new_states.append(ns)
+            x = shared_apply(params["shared_attn"], x, planner, positions,
+                             None if attn_caches is None
+                             else _layer(attn_caches, i), cache_pos, angles)
+        new = {"mamba": {name: torch.stack([ns[name] for ns in new_states])
+                         for name in ("ssd", "conv")},
+               "tail": states["tail"]}
+        if tail:
+            x, new["tail"] = mamba_stack(params["tail_blocks"], tail,
+                                         states["tail"], x, planner, decode)
+        return x, new
+
+    def loss_fn(params, batch_d, planner):
+        tokens = batch_d["tokens"]
+        positions = _positions(tokens)
+        x = _embed(params, tokens, cfg, planner, positions)
+        states = zeros_of(state_defs(tokens.shape[0]), device=x.device)
+        h, _ = run(params, x, planner, positions, states, None, None,
+                   decode=False)
+        return _shift_loss(h, params, tokens, cfg, planner)
+
+    def decode_fn(params, cache, tokens, pos, planner, extras,
+                  last_only=False):
+        pos = int(pos)
+        positions = _positions(tokens, pos)
+        x = _embed(params, tokens, cfg, planner, positions)
+        # a full-sequence prefill runs the chunked scan
+        h, new_states = run(params, x, planner, positions, cache["states"],
+                            cache["attn"], pos, decode=tokens.shape[1] == 1)
+        if last_only:
+            h = h[:, -1:]
+        h = L.apply_norm(params["ln_f"], h)
+        return h @ params["lm_head"], {"states": new_states,
+                                       "attn": cache["attn"]}
+
+    def cache_defs(batch, max_len):
+        kv = (n_super, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        axes = ("layers", "batch", "seq", "kv_heads", None)
+        return {"states": state_defs(batch),
+                "attn": {"k": ParamDef(kv, axes, init="zeros"),
+                         "v": ParamDef(kv, axes, init="zeros")}}
+
+    return Model(cfg, defs, loss_fn, decode_fn, cache_defs)
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = {"ssm": "A15d (models/xlstm.py)",
-               "hybrid": "A15d (models/ssm.py and the hybrid builder)",
-               "encdec": "A15e (the encoder-decoder builder)",
+_NOT_PORTED = {"encdec": "A15e (the encoder-decoder builder)",
                "vlm": "A15e (the cross-attention VLM builder)"}
 
 
@@ -259,6 +488,10 @@ def build_model(cfg: ModelConfig, backend: str = "auto") -> Model:
     "kernel" or "ref" (the plain version on any device)."""
     if cfg.family in ("dense", "moe"):
         return build_decoder_lm(cfg, backend)
+    if cfg.family == "ssm":
+        return build_xlstm_lm(cfg, backend)
+    if cfg.family == "hybrid":
+        return build_hybrid_lm(cfg, backend)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.arch}: the {cfg.family} family is ROADMAP "

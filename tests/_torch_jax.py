@@ -12,3 +12,24 @@ XLA_FAST = {"xla_backend_optimization_level": 0,
 def run_fast(jitted, *args):
     """``jitted(*args)``, compiled with :data:`XLA_FAST`."""
     return jitted.lower(*args).compile(compiler_options=XLA_FAST)(*args)
+
+
+def fast(jitted):
+    """``jitted`` compiled with :data:`XLA_FAST` once for each tree,
+    shape and dtype of its arguments (:func:`run_fast` compiles on every
+    call): for a step called many times, as an ``Engine`` calls it."""
+    import jax
+
+    done = {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple((getattr(a, "shape", None),
+                            str(getattr(a, "dtype", type(a))))
+                           for a in leaves))
+        if key not in done:
+            done[key] = jitted.lower(*args).compile(
+                compiler_options=XLA_FAST)
+        return done[key](*args)
+
+    return call
